@@ -1,0 +1,231 @@
+"""Port api vs the JAX reference api, on the CPU.
+
+``compress`` must produce the JAX package's bytes; ``decompress`` on the
+CPU (the kernels' plain versions) must equal the JAX kernel path (Pallas in
+interpret mode) and the input, for every container layout.  Byte-exact:
+the tolerance is zero.
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from hypersonic_rle_kit_tpu import api as japi
+from hypersonic_rle_kit_tpu.parallel import container
+from hypersonic_rle_kit_tpu.utils import native
+from hypersonic_rle_kit_tpu_torch import api
+from hypersonic_rle_kit_tpu_torch.ops import planar, unpack_device
+
+B = 4096
+
+
+def _data(n: int, seed: int) -> bytes:
+    """DCT-like bytes: short nonzero prefixes, zero runs, dense stretches."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(-9, 10, n).astype(np.int8).astype(np.uint8)
+    d[rng.random(n) < 0.75] = 0
+    d[n // 3:n // 3 + 2000] = rng.integers(0, 256, 2000, dtype=np.uint8)
+    d[n // 2:n // 2 + 3000] = 7
+    return d.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# (d) compress: the port's bytes are the JAX package's
+# ---------------------------------------------------------------------------
+
+CODECS = ["8 Bit", "8 Bit Packed", "8 Bit Single", "24 Bit (Symbol)",
+          "32 Bit (Symbol)"]
+
+
+@pytest.mark.parametrize("backend", ["native", "host"])
+@pytest.mark.parametrize("codec", CODECS)
+def test_compress_bytes_match_jax(codec, backend):
+    if backend == "native" and native.lib() is None:
+        pytest.skip("native runtime unavailable")
+    raw = _data(50_001, 1)
+    blob = api.compress(raw, codec, backend=backend)
+    assert blob == japi.compress(raw, codec, backend=backend)
+    assert api.decompress(blob, device="cpu") == raw
+
+
+@pytest.mark.parametrize("codec", ["8 Bit", "8 Bit Single",
+                                   "32 Bit (Symbol)"])
+def test_compress_device_backend_matches_host(codec):
+    raw = _data(20_011, 2)
+    blob = api.compress(raw, codec, block_size=B * 4, backend="device",
+                        device="cpu")
+    assert blob == japi.compress(raw, codec, block_size=B * 4,
+                                 backend="host")
+
+
+def test_compress_kernel_backend_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.compress(b"abc", backend="kernel")
+
+
+def test_compress_bounds_and_empty():
+    assert api.compress_bounds(10 ** 6) == japi.compress_bounds(10 ** 6)
+    blob = api.compress(b"")
+    assert blob == japi.compress(b"")
+    assert api.decompress(blob, device="cpu") == b""
+
+
+# ---------------------------------------------------------------------------
+# (e) decompress: port == JAX kernel path == input, every layout
+# ---------------------------------------------------------------------------
+
+def _cols(raw: bytes, min_count: int = 6):
+    x, lens = api._to_blocks(np.frombuffer(raw, np.uint8), B)
+    cap = planar.capacity_for(B, min_count)
+    outs = [planar.host_encode_block(x[b, :lens[b]], cap, B, min_count)
+            for b in range(x.shape[0])]
+    return ([np.stack([o[i] for o in outs]) for i in range(4)]
+            + [np.array([o[i] for o in outs], np.int32) for i in (4, 5)])
+
+
+def _layouts():
+    """The same data in each HRT1 layout (flat, deep, deep + literal
+    dictionary, non-uniform widths)."""
+    raw = _data(3 * B - 123, 3)
+    cols = _cols(raw)
+    nb = cols[0].shape[0]
+    blobs = {"flat": container.serialize_blocks(0, len(raw), B, 6, *cols,
+                                                deep=False),
+             "nonuniform": container.serialize_blocks(
+                 0, len(raw), B, 6, *cols, deep=False, uniform_bits=False)}
+    sym, count, lit_len, lits, n_cmds, n_lits = cols
+    pooled_c = np.concatenate([count[b, :n_cmds[b] - 1].astype(np.int64) - 6
+                               for b in range(nb)])
+    pooled_l = np.concatenate([lit_len[b, :n_cmds[b]].astype(np.int64)
+                               for b in range(nb)])
+    widths = (container._two_tier_widths(pooled_c)
+              + container._two_tier_widths(pooled_l))
+    for name, lit_k, flags in (
+            ("deep", 0, container.FLAG_DEEP),
+            ("deep_litdict", 4, container.FLAG_DEEP | container.FLAG_LITDICT)):
+        parts = [container.block_payload_deep(
+            sym[b], count[b], lit_len[b], lits[b], int(n_cmds[b]),
+            int(n_lits[b]), 6, widths, lit_k=lit_k) for b in range(nb)]
+        blobs[name] = container.assemble(0, len(raw), B, parts, flags=flags)
+    return raw, blobs
+
+
+LAYOUTS = ["flat", "deep", "deep_litdict", "nonuniform"]
+
+
+@pytest.fixture(scope="module")
+def layouts():
+    return _layouts()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_decompress_matches_jax_kernel_path(layouts, layout):
+    raw, blobs = layouts
+    blob = blobs[layout]
+    info, _ = container.parse(blob)
+    assert info.deep == layout.startswith("deep")
+    assert info.litdict == (layout == "deep_litdict")
+    assert (container.pack_for_device(blob) is None) == (layout ==
+                                                          "nonuniform")
+    got = api.decompress(blob, device="cpu")
+    assert got == raw
+    assert japi.decompress(blob, backend="kernel") == got
+
+
+@pytest.mark.parametrize("codec", ["24 Bit (Symbol)", "32 Bit (Symbol)",
+                                   "16 Bit (Symbol)"])
+def test_decompress_widths_with_tail_block(codec):
+    """Width codecs decode in byte lanes and re-interleave on the host,
+    including a partial tail block."""
+    w = api.hrt1_params(api._resolve(codec))[0]
+    raw = _data(5 * B * w // 2 + 7 * w - 1, 4)
+    blob = api.compress(raw, codec, block_size=B * w)
+    assert blob == japi.compress(raw, codec, block_size=B * w)
+    assert api.decompress(blob, device="cpu") == raw
+    assert japi.decompress(blob, backend="device") == raw
+
+
+def test_decompress_rejects_bad_width():
+    blob = bytearray(api.compress(_data(9000, 5), "8 Bit", block_size=4097))
+    blob[4] = japi._resolve("32 Bit (Symbol)").index     # w=4, 4097 % 4 != 0
+    with pytest.raises(container.ContainerError):
+        api.decompress(bytes(blob), device="cpu")
+
+
+def test_decompress_rejects_unknown_device():
+    blob = api.compress(_data(9000, 6), "8 Bit", block_size=B)
+    with pytest.raises(ValueError):
+        api.decompress(blob, device="meta")
+
+
+@pytest.mark.parametrize("codec", ["8 Bit", "16 Bit (Symbol)",
+                                   "8 Bit Packed"])
+def test_fuzz_corpus_roundtrip_matches_jax(codec):
+    """The repo's fuzz corpus (random and repeated-symbol sections, tiny
+    and odd lengths) through both packages at a small block size."""
+    import fuzz_inputs
+    for raw in fuzz_inputs.corpus(count=6):
+        blob = api.compress(raw, codec, block_size=B)
+        assert blob == japi.compress(raw, codec, block_size=B)
+        assert api.decompress(blob, device="cpu") == raw
+
+
+# ---------------------------------------------------------------------------
+# (f) a hostile deep container raises ContainerError
+# ---------------------------------------------------------------------------
+
+def test_hostile_deep_container_raises():
+    """Construction of tests/test_container_harden.py: zero a block's lut
+    section so the miss population exceeds the stored n_miss."""
+    rng = np.random.default_rng(11)
+    data = np.zeros(300_000, np.uint8)
+    pos = k = 0
+    while pos < data.size - 400:
+        run = int(rng.integers(8, 60))
+        data[pos:pos + run] = k % 251
+        k += 1
+        pos += run + int(rng.integers(0, 6))
+    blob = api.compress(data.tobytes())
+    info, blocks = container.parse(blob)
+    assert info.deep
+    bl = blocks[0]
+    offs, sizes = container._deep_sections(bl, bl["n_cmds"], bl["n_lits"])
+    buf = bytearray(blob)
+    p = bl["payload_off"] + offs[4]
+    buf[p:p + sizes[4]] = bytes(sizes[4])
+    hostile = bytes(buf)
+    container.parse(hostile)          # still structurally valid
+    pk = container.pack_for_device(hostile)
+    _, bad = unpack_device.dispatch_packed(
+        pk, unpack_device.ship_packed(pk, "cpu"), with_flags=True)
+    assert int(bad[0]) == 1 and not bad[1:].any()
+    with pytest.raises(container.ContainerError):
+        unpack_device.decode_packed(pk, device="cpu")
+    with pytest.raises(container.ContainerError):
+        api.decompress(hostile, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# (g) the port imports no JAX
+# ---------------------------------------------------------------------------
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import hypersonic_rle_kit_tpu_torch\n"
+        "import hypersonic_rle_kit_tpu_torch.api\n"
+        "import hypersonic_rle_kit_tpu_torch.ops.decode_sup\n"
+        "import hypersonic_rle_kit_tpu_torch.ops.device\n"
+        "import hypersonic_rle_kit_tpu_torch.ops.unpack_device\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'hypersonic_rle_kit_tpu.ops',\n"
+        "                              'hypersonic_rle_kit_tpu.api')))\n"
+        "assert not bad, bad\n"
+        "assert not __import__('torch').cuda.is_initialized()\n")
+    root = __file__.rsplit("/", 2)[0]
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr

@@ -1,0 +1,207 @@
+"""Hopper kernels vs their plain torch versions, on the card.
+
+Marked ``cuda``: every test skips without a CUDA device.  Run them on a
+machine with an H100 (``--noconftest``: the suite's conftest only
+configures JAX, which these tests do not use):
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
+
+Integers throughout: kernel and plain version must agree byte for byte.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hypersonic_rle_kit_tpu.parallel import container
+from hypersonic_rle_kit_tpu_torch import api
+from hypersonic_rle_kit_tpu_torch.ops import (_kernels, decode_sup, planar,
+                                              unpack_device)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _dct(n, seed):
+    rng = np.random.default_rng(seed)
+    d = rng.integers(-4, 5, n).astype(np.int8).astype(np.uint8)
+    d[rng.random(n) < 0.8] = 0
+    return d
+
+
+def _columns(kind, B, nb, seed, min_count=6):
+    """Synthetic planar columns [nb, ...] for one edge case."""
+    rng = np.random.default_rng(seed)
+    lens = np.full(nb, B, np.int32)
+    if kind == "dense":
+        x = np.repeat(rng.integers(0, 251, (nb, B // 6 + 1)), 6,
+                      axis=1)[:, :B].astype(np.uint8)
+    elif kind == "sparse":
+        x = _dct(nb * B, seed).reshape(nb, B)
+    elif kind == "all_literal":
+        x = rng.integers(0, 256, (nb, B), dtype=np.uint8)
+    elif kind == "whole_run":
+        x = np.repeat(rng.integers(0, 256, (nb, 1), dtype=np.uint8), B, 1)
+    elif kind == "ragged_tail":
+        x = _dct(nb * B, seed).reshape(nb, B)
+        lens[-3:] = [B - 777, 17, 0][-min(3, nb):]
+    elif kind == "min_count_1":
+        x = rng.integers(0, 2, (nb, B), dtype=np.uint8)
+        min_count = 1
+    else:
+        raise ValueError(kind)
+    for b in range(nb):
+        x[b, lens[b]:] = 0
+    cap = planar.capacity_for(B, min_count)
+    outs = [planar.host_encode_block(x[b, :lens[b]], cap, B, min_count)
+            for b in range(nb)]
+    cols = [np.stack([o[i] for o in outs]) for i in range(4)]
+    return cols + [np.array([o[i] for o in outs], np.int32)
+                   for i in (4, 5)] + [lens]
+
+
+def _zero_count_columns(B, nb, seed):
+    """Random command streams with zero-count commands mid-stream."""
+    rng = np.random.default_rng(seed)
+    C = 512
+    sym = rng.integers(0, 256, (nb, C), dtype=np.uint8)
+    count = np.where(rng.random((nb, C)) < 0.3, 0,
+                     rng.integers(1, 40, (nb, C))).astype(np.int32)
+    lit_len = rng.integers(0, 12, (nb, C)).astype(np.int32)
+    n_cmds = rng.integers(1, C, nb).astype(np.int32)
+    for b in range(nb):
+        count[b, n_cmds[b] - 1:] = 0
+        lit_len[b, n_cmds[b]:] = 0
+    blen = np.minimum((count + lit_len).sum(1), B).astype(np.int32)
+    n_lits = lit_len.sum(1).astype(np.int32)
+    lits = rng.integers(0, 256, (nb, B), dtype=np.uint8)
+    return [sym, count, lit_len, lits, n_cmds, n_lits, blen]
+
+
+def _trim_lits(cols):
+    lw = max(128, -(-int(cols[5].max()) // 128) * 128)
+    cols[3] = decode_sup.lits_to_words(
+        np.ascontiguousarray(cols[3][:, :min(lw, cols[3].shape[1])]))
+    return cols
+
+
+CASES = ["dense", "sparse", "all_literal", "whole_run", "ragged_tail",
+         "min_count_1", "zero_count_mid"]
+
+
+@pytest.mark.parametrize("B", [4096, 65536, 262144])
+@pytest.mark.parametrize("kind", CASES)
+def test_decode_kernel_matches_plain(dev, kind, B):
+    nb = 4
+    cols = (_zero_count_columns(B, nb, 3) if kind == "zero_count_mid"
+            else _columns(kind, B, nb, 5))
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+         for a in _trim_lits(cols)]
+    for words in (True, False):
+        k = decode_sup.decode_columns_device(*t, block_size=B,
+                                             out_words=words)
+        p = decode_sup.decode_columns_plain(*t, block_size=B,
+                                            out_words=words)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p), (kind, B, words)
+
+
+def test_decode_kernel_odd_block_size(dev):
+    B = 4099
+    cols = _columns("sparse", B, 3, 9)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in cols]
+    k = decode_sup.decode_columns_device(*t, block_size=B)
+    p = decode_sup.decode_columns_plain(*t, block_size=B)
+    assert k.shape == (3, B) and torch.equal(k, p)
+
+
+def _deep_blob(seed):
+    rng = np.random.default_rng(seed)
+    data = np.zeros(300_000, np.uint8)
+    pos = 0
+    k = 0
+    while pos < data.size - 400:
+        run = int(rng.integers(6, 600))
+        data[pos:pos + run] = k % 37
+        k += 1
+        pos += run + int(rng.integers(0, 9))
+    raw = data.tobytes()
+    return api.compress(raw, block_size=65536, backend="host"), raw
+
+
+def test_resolve_kernel_matches_plain(dev):
+    blob, _ = _deep_blob(1)
+    pk = container.pack_for_device(blob)
+    assert pk["info"].deep
+    a = unpack_device.ship_packed(pk, dev)
+    cap = pk["capacity"]
+    planes = [unpack_device._unpack_wide(a[k], bits, cap) for k, bits in (
+        ("cnts_raw", pk["cnt_bits"]), ("cnt_ovf_raw", pk["cnt_ovf_bits"]),
+        ("lls_raw", pk["lit_bits"]), ("ll_ovf_raw", pk["ll_ovf_bits"]),
+        ("lut_raw", 3))]
+    kw = dict(cap=cap, cnt_bits=pk["cnt_bits"], lit_bits=pk["lit_bits"],
+              min_count=pk["info"].min_count)
+    args = (*planes, a["miss_raw"], a["dict7"], a["n_cmds"])
+    k = unpack_device._resolve_deep(*args, **kw)
+    p = unpack_device.resolve_deep_plain(*args, **kw)
+    for x, y in zip(k, p):
+        assert torch.equal(x, y)
+
+
+def test_decompress_on_card_counts_launches(dev):
+    blob, raw = _deep_blob(2)
+    api.reset_kernel_launch_counts()
+    assert api.decompress(blob, device=dev) == raw
+    n = api.kernel_launch_counts()
+    assert n["hrt1_decode"] >= 1 and n["hrt1_resolve_deep"] >= 1
+
+
+def test_kernels_survive_hostile_columns(dev):
+    """Columns no container would hold (negative and huge fields, n_cmds
+    and block_len out of range, dense escapes) must not fault; the decode
+    stays zero past each block's length and the resolver equals its plain
+    version."""
+    rng = np.random.default_rng(17)
+    nb, C, B = 6, 384, 8192
+    big = np.iinfo(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cols = [rng.integers(0, 256, (nb, C), dtype=np.uint8),
+            rng.integers(big.min, big.max, (nb, C), dtype=np.int32),
+            rng.integers(-50, 5000, (nb, C), dtype=np.int32),
+            rng.integers(0, 256, (nb, 1000), dtype=np.uint8),
+            np.array([-3, 0, 1, C // 2, C, 10 * C], np.int32),
+            rng.integers(0, B, nb, dtype=np.int32),
+            np.array([B, -7, 0, B // 3, B + 99, 5], np.int32)]
+    cols[1][::2] = rng.integers(0, 40, (nb, C))[::2]
+    out = decode_sup.decode_columns_device(*map(t, cols), block_size=B)
+    torch.cuda.synchronize()
+    for b, bl in enumerate(np.clip(cols[6], 0, B)):
+        assert not out[b, bl:].any()
+
+    cap = 256
+    planes = [rng.integers(0, 4, (nb, cap), dtype=np.int32) for _ in range(5)]
+    planes[4] = rng.integers(0, 8, (nb, cap), dtype=np.int32)
+    args = [*map(t, planes), t(rng.integers(0, 256, (nb, cap), np.uint8)),
+            t(rng.integers(0, 256, (nb, 7), np.uint8)),
+            t(np.array([-1, 0, 1, cap, 2 * cap, 77], np.int32))]
+    kw = dict(cap=cap, cnt_bits=2, lit_bits=2, min_count=6)
+    k = unpack_device._resolve_deep(*args, **kw)
+    p = unpack_device.resolve_deep_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(k, p):
+        assert torch.equal(x, y)
+
+
+def test_kernel_rejects_bad_input(dev):
+    cols = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in _columns("sparse", 4096, 2, 1)]
+    cols[1] = cols[1].to(torch.int64)
+    with pytest.raises(TypeError):
+        decode_sup.decode_columns_device(*cols, block_size=4096)
+    assert _kernels.lib() is not None
