@@ -1,12 +1,19 @@
 """User-facing compress / decompress of the HRT1 container, on torch.
 
-Port of hypersonic_rle_kit_tpu/api.py.  ``decompress(buf, device=...)`` is
-the device half of the round trip: the host slices the container into
-payload sections (container.pack_for_device, shared), ships them in two
-copies, and the device bit-unpacks, resolves (hrt1_resolve_deep, deep
-layout) and decodes (hrt1_decode).  There is no fallback: a kernel error or
-``torch.cuda.OutOfMemoryError`` propagates, and ``kernel_launch_counts()``
-shows which kernels ran.
+Port of hypersonic_rle_kit_tpu/api.py; both directions run on the device:
+
+- ``compress(data, codec, backend="kernel", device="cuda")``: the blocks go
+  to the card in one pinned copy, the width de-interleave runs there, the
+  hrt1_encode kernel (ops/encode_sup.py) emits the planar columns, and they
+  come back through pinned buffers to the shared
+  ``container.serialize_blocks``.
+- ``decompress(buf, device=...)``: the host slices the container into
+  payload sections (container.pack_for_device, shared), ships them in two
+  copies, and the device bit-unpacks, resolves (hrt1_resolve_deep, deep
+  layout), decodes (hrt1_decode) and re-interleaves the widths.
+
+There is no fallback: a kernel error or ``torch.cuda.OutOfMemoryError``
+propagates, and ``kernel_launch_counts()`` shows which kernels ran.
 """
 
 from __future__ import annotations
@@ -16,9 +23,10 @@ import torch
 
 from hypersonic_rle_kit_tpu import spec as spec_mod
 from hypersonic_rle_kit_tpu.parallel import container
+from hypersonic_rle_kit_tpu.utils import native
 
-from .ops import _kernels, decode_sup, device as device_ops, planar
-from .ops import unpack_device
+from .ops import _kernels, decode_sup, device as device_ops, encode_sup
+from .ops import planar, unpack_device
 
 # per-family minimum run length for the HRT1 cost model: one command must
 # not cost more than it saves (8-bit commands cost ~3 bytes)
@@ -51,42 +59,50 @@ def hrt1_params(cspec: "spec_mod.CodecSpec"):
     return w, block, min_count, bool(cspec.single)
 
 
-def _deinterleave_block(row: np.ndarray, n: int, w: int) -> tuple[np.ndarray, int]:
-    """One padded block row -> byte-lane layout prefix of length
-    ceil(n/w)*w (rest zero), with the transformed valid length."""
-    B = row.shape[0]
-    bt = -(-n // w) * w
-    out = np.zeros(B, np.uint8)
-    out[:bt] = row[:bt].reshape(bt // w, w).T.reshape(-1)
-    return out, bt
+def _lane_lens(lens: np.ndarray, w: int) -> np.ndarray:
+    """Block lengths -> their transformed lengths ceil(n/w)*w."""
+    return (-(-lens.astype(np.int64) // w) * w).astype(np.int32)
 
 
-def _interleave_block(row: np.ndarray, n: int, w: int) -> np.ndarray:
-    """Inverse of :func:`_deinterleave_block`, trimmed to ``n`` bytes."""
-    bt = -(-n // w) * w
-    return row[:bt].reshape(w, bt // w).T.reshape(-1)[:n]
-
-
-def _deinterleave(x: np.ndarray, lens: np.ndarray, w: int):
-    """[nb, B] blocks + original lengths -> transformed blocks + lengths."""
+def _deinterleave(x: torch.Tensor, lens: np.ndarray, w: int) -> torch.Tensor:
+    """[nb, B] blocks (original lengths ``lens``) -> byte-lane layout, on
+    ``x``'s device.  A partial (tail) block transforms its ceil(n/w)*w
+    prefix and is zero after it; the valid lengths are :func:`_lane_lens`."""
     if w == 1:
-        return x, lens
+        return x
     nb, B = x.shape
-    xt = x.reshape(nb, B // w, w).swapaxes(1, 2).reshape(nb, B)
-    tlens = (-(-lens.astype(np.int64) // w) * w).astype(np.int32)
-    for b in np.flatnonzero(lens != B):           # partial (tail) blocks
-        xt[b], tlens[b] = _deinterleave_block(x[b], int(lens[b]), w)
-    return xt, tlens
+    xt = x.reshape(nb, B // w, w).transpose(1, 2).reshape(nb, B)
+    for b in np.flatnonzero(lens != B):
+        bt = -(-int(lens[b]) // w) * w
+        xt[b, :bt] = x[b, :bt].reshape(bt // w, w).t().reshape(-1)
+        xt[b, bt:] = 0
+    return xt
 
 
-def _interleave(y: np.ndarray, orig_len: np.ndarray, w: int) -> np.ndarray:
-    """Inverse of :func:`_deinterleave` on decoded [nb, B] byte lanes."""
-    nb, B = y.shape
-    yi = np.ascontiguousarray(
-        y.reshape(nb, w, B // w).swapaxes(1, 2).reshape(nb, B))
-    for b in np.flatnonzero(orig_len != B):       # partial (tail) blocks
+def _interleave_plane(a: torch.Tensor, *, nb: int, w: int,
+                      B: int) -> torch.Tensor:
+    """Byte-plane re-interleave on the device for the widths whose lanes
+    are not whole words (16/24/48-bit): [nb, B] lanes -> original order."""
+    return a.reshape(nb, w, B // w).transpose(1, 2).reshape(nb, B)
+
+
+def _interleave(y: torch.Tensor, orig_len: np.ndarray, w: int) -> torch.Tensor:
+    """Inverse of :func:`_deinterleave` on decoded lanes, on ``y``'s device.
+
+    ``y`` is [nb, B/4] int32 words (w % 4 == 0) or [nb, B] bytes, and the
+    result has the same form.  A partial (tail) block re-interleaves its
+    ceil(n/w)*w prefix, as the JAX package's host fix-up does."""
+    words = y.dtype == torch.int32
+    nb = y.shape[0]
+    lane = y.view(torch.uint8) if words else y
+    B = lane.shape[1]
+    yi = (decode_sup.interleave_words(y, w=w) if words
+          else _interleave_plane(y, nb=nb, w=w, B=B))
+    out = yi.view(torch.uint8) if words else yi
+    for b in np.flatnonzero(orig_len != B):
         n = int(orig_len[b])
-        yi[b, :n] = _interleave_block(y[b], n, w)
+        bt = -(-n // w) * w
+        out[b, :n] = lane[b, :bt].reshape(w, bt // w).t().reshape(-1)[:n]
     return yi
 
 
@@ -122,20 +138,78 @@ def _host_encode(x, lens, cap, block_size, min_count, only_sym=None):
             + [np.array([o[i] for o in outs], np.int32) for i in (4, 5)])
 
 
+def _dominant_bytes(x: np.ndarray, tlens: np.ndarray) -> np.ndarray:
+    """Single's dominant byte of each block's first ``tlens[b]`` bytes, the
+    first maximum on ties (np.argmax).  The width transform permutes the
+    bytes inside that prefix, so the blocks in either order give it."""
+    return np.array([np.bincount(x[b, :tlens[b]], minlength=256).argmax()
+                     for b in range(x.shape[0])], np.int32)
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``dev``; to CUDA through a pinned buffer."""
+    t = torch.from_numpy(a)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def _to_host(*ts: torch.Tensor) -> list[np.ndarray]:
+    """Tensors -> numpy arrays; from CUDA through pinned buffers, every copy
+    queued before one synchronisation."""
+    outs, stream = [], None
+    for t in ts:
+        if t.device.type == "cuda":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            stream = torch.cuda.current_stream(t.device)
+            t = host
+        outs.append(t)
+    if stream is not None:
+        stream.synchronize()
+    return [t.numpy() for t in outs]
+
+
+def _columns_to_host(sym, count, lit_len, lits, n_cmds, n_lits) -> list:
+    """Device columns -> numpy columns for ``container.serialize_blocks``,
+    which reads only ``[:n_cmds]`` / ``[:n_lits]`` of a row: the rows cross
+    trimmed to the widest block's counts."""
+    nc, nl = _to_host(n_cmds, n_lits)
+    c, m = max(int(nc.max()), 1), max(int(nl.max()), 1)
+    return _to_host(sym[:, :c], count[:, :c], lit_len[:, :c],
+                    lits[:, :m]) + [nc, nl]
+
+
+def _encode_on_device(x: np.ndarray, lens: np.ndarray, w: int, cap: int,
+                      min_count: int, only_sym, dev: torch.device,
+                      kernel: bool) -> list:
+    """[nb, B] host blocks (original lengths ``lens``) -> numpy columns of
+    the transformed blocks, encoded on ``dev`` by the hrt1_encode wrapper
+    (``kernel``) or the plain torch encoder."""
+    xd = _deinterleave(_to_device(x, dev), lens, w)
+    tl = _to_device(_lane_lens(lens, w), dev)
+    os_ = None if only_sym is None else _to_device(only_sym, dev)
+    if kernel:
+        cols = encode_sup.encode_blocks_kernel(
+            xd, tl, capacity=cap, min_count=min_count, only_sym=os_)
+    else:
+        pb = device_ops.encode_blocks(xd, tl, capacity=cap,
+                                      min_count=min_count, only_sym=os_)
+        cols = (pb.sym, pb.count, pb.lit_len, pb.lits, pb.n_cmds, pb.n_lits)
+    return _columns_to_host(*cols)
+
+
 def compress(data, codec: str | int | spec_mod.CodecSpec = "8 Bit", *,
              block_size: int | None = None, backend: str = "auto",
              device="cpu") -> bytes:
     """Compress to the HRT1 container; the bytes equal the JAX package's.
 
-    ``backend``: 'native' (C++ host encoder), 'host' (numpy golden),
-    'device' (torch ``ops/device.encode_blocks`` on ``device``) or 'auto'
-    (native if the library builds, else 'device').  'kernel' (the Pallas
-    encoder's port) is not ported yet and raises NotImplementedError."""
-    if backend == "kernel":
-        raise NotImplementedError(
-            "compress(backend='kernel') needs the encode kernel port "
-            "(ROADMAP.md, queue A item 7); use 'native', 'device' or 'host'")
-    if backend not in ("auto", "native", "device", "host"):
+    ``backend``: 'kernel' (the hrt1_encode wrapper on ``device``: the
+    kernel on CUDA, its plain version on the CPU), 'device' (the plain torch
+    ``ops/device.encode_blocks`` on ``device``), 'native' (C++ host
+    encoder), 'host' (numpy golden) or 'auto' (native if the library
+    builds, else 'kernel' when ``device`` is CUDA, else 'device')."""
+    if backend not in ("auto", "kernel", "device", "native", "host"):
         raise ValueError(f"unknown backend {backend!r}")
     cspec = _resolve(codec)
     w, bdef, min_count, single = hrt1_params(cspec)
@@ -151,49 +225,34 @@ def compress(data, codec: str | int | spec_mod.CodecSpec = "8 Bit", *,
             np.zeros((0, 1), np.uint8), np.zeros((0, 1), np.int32),
             np.zeros((0, 1), np.int32), np.zeros((0, block_size), np.uint8),
             np.zeros(0, np.int32), np.zeros(0, np.int32))
-    x, lens = _deinterleave(*_to_blocks(arr, block_size), w)
-    only_sym = None
-    if single:
-        # dominant byte per block in one O(n) pass: one flat bincount over
-        # (block, byte) pairs, padding masked by weight
-        nb_, B_ = x.shape
-        flat = (np.arange(nb_, dtype=np.int64)[:, None] * 256
-                + x.astype(np.int64))
-        wt = (np.arange(B_)[None, :] < lens[:, None]).astype(np.float64)
-        hist = np.bincount(flat.ravel(), weights=wt.ravel(),
-                           minlength=nb_ * 256).reshape(nb_, 256)
-        only_sym = hist.argmax(axis=1).astype(np.int32)
+    dev = torch.device(device)
+    if backend == "auto":
+        backend = ("native" if native.lib() is not None
+                   else "kernel" if dev.type == "cuda" else "device")
+    x, lens = _to_blocks(arr, block_size)
+    tlens = _lane_lens(lens, w)
+    only_sym = _dominant_bytes(x, tlens) if single else None
     cap = planar.capacity_for(block_size, min_count)
-    cols = None
-    if backend in ("auto", "native"):
-        from hypersonic_rle_kit_tpu.utils import native
-        cols = native.planar_from_bytes(x, lens, cap, min_count,
-                                        only_sym=only_sym)
-        if cols is None and backend == "native":
-            raise RuntimeError("native runtime unavailable")
-    if cols is None and backend in ("auto", "device"):
-        dev = torch.device(device)
-        pb = device_ops.encode_blocks(
-            torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev),
-            capacity=cap, min_count=min_count,
-            only_sym=None if only_sym is None
-            else torch.from_numpy(only_sym).to(dev))
-        cols = [t.cpu().numpy() for t in
-                (pb.sym, pb.count, pb.lit_len, pb.lits, pb.n_cmds, pb.n_lits)]
-    if cols is None:
-        cols = _host_encode(x, lens, cap, block_size, min_count, only_sym)
+    if backend in ("kernel", "device"):
+        cols = _encode_on_device(x, lens, w, cap, min_count, only_sym, dev,
+                                 kernel=backend == "kernel")
+    else:
+        xt = _deinterleave(torch.from_numpy(x), lens, w).numpy()
+        if backend == "native":
+            cols = native.planar_from_bytes(xt, tlens, cap, min_count,
+                                            only_sym=only_sym)
+            if cols is None:
+                raise RuntimeError("native runtime unavailable")
+        else:
+            cols = _host_encode(xt, tlens, cap, block_size, min_count,
+                                only_sym)
     return container.serialize_blocks(
         cspec.index, arr.size, block_size, min_count, *cols)
 
 
 def _to_host_bytes(y: torch.Tensor, words: bool) -> np.ndarray:
     """Device output -> host bytes; from CUDA through one pinned buffer."""
-    if y.device.type == "cuda":
-        host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-        host.copy_(y, non_blocking=True)
-        torch.cuda.current_stream(y.device).synchronize()
-        y = host
-    yh = y.cpu().numpy()
+    (yh,) = _to_host(y)
     return decode_sup.words_to_bytes(yh) if words else yh
 
 
@@ -219,13 +278,11 @@ def decompress(buf, *, device) -> bytes:
 
     orig_len = np.full(info.n_blocks, B, np.int32)
     orig_len[-1] = info.uncompressed_size - (info.n_blocks - 1) * B
-    tlen = orig_len
-    if w > 1:   # widths decode in the byte-lane domain (hrt1_params)
-        tlen = (-(-orig_len.astype(np.int64) // w) * w).astype(np.int32)
+    tlen = _lane_lens(orig_len, w)   # widths decode in byte lanes
     # width-1 and whole-word widths take the words form (free byte view)
     words = (w == 1 or w % 4 == 0) and B % 4 == 0
 
-    y = None
+    yd = None
     pk = container.pack_for_device(buf, parsed=(info, blocks))
     if pk is not None:
         pk["block_len"] = tlen
@@ -235,19 +292,20 @@ def decompress(buf, *, device) -> bytes:
         # a set flag marks a hostile deep container: its stored sub-header
         # counts disagree with the escape population; the validating host
         # reader below raises ContainerError for it
-        if bad is None or not bool(bad.any()):
-            y = _to_host_bytes(yd, words)
-    if y is None:
+        if bad is not None and bool(bad.any()):
+            yd = None
+    if yd is None:
         # non-uniform bit widths (pack_for_device -> None) or a flagged
         # container: unpack on the host, decode the columns on the device
         _, (sym, count, lit_len, lits, n_cmds, n_lits, _bl) = \
             container.deserialize_to_planar(buf)
         t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
              (sym, count, lit_len, lits, n_cmds, n_lits, tlen)]
-        y = _to_host_bytes(decode_sup.decode_columns_device(
-            *t, block_size=B, out_words=words), words)
+        yd = decode_sup.decode_columns_device(*t, block_size=B,
+                                              out_words=words)
     if w > 1:
-        y = _interleave(y, orig_len, w)
+        yd = _interleave(yd, orig_len, w)
+    y = _to_host_bytes(yd, words)
     # only the last block can be partial (container.parse), so masking
     # each block to its length is one slice of the row-major rows
     return y.reshape(-1)[:info.uncompressed_size].tobytes()

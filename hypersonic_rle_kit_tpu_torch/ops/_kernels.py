@@ -1,9 +1,10 @@
 """Build and load the hand-written Hopper kernels (``../csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` into one shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds), at first use,
-into ``build/torch_kernels/`` under the repository root, keyed by a hash of
-the sources and flags.  The library is loaded with ``ctypes``: every pointer
+The sources are compiled with ``nvcc``, one process per source, all started
+together, and linked into one shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds), at first use, into
+``build/torch_kernels/`` under the repository root, keyed by a hash of the
+sources and flags.  The library is loaded with ``ctypes``: every pointer
 and the stream pass as ``c_void_p``, and every entry point returns
 ``cudaGetLastError()`` right after its launch.
 
@@ -24,10 +25,10 @@ import subprocess
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("hrt1_decode.cu", "hrt1_resolve.cu")
+SOURCES = ("hrt1_decode.cu", "hrt1_resolve.cu", "hrt1_encode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("hrt1_decode", "hrt1_resolve_deep")
+              "-O3", "-Xcompiler", "-fPIC")
+KERNELS = ("hrt1_decode", "hrt1_resolve_deep", "hrt1_encode")
 
 _launches = dict.fromkeys(KERNELS, 0)
 
@@ -62,19 +63,43 @@ def library_path() -> pathlib.Path:
     return _BUILD / f"libhrt1_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with nvcc's diagnostics if any
+    fails (after all have ended)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [f"{' '.join(c)} -> {p.returncode}:\n{o}"
+           for c, p, o in zip(cmds, procs, outs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(bad))
+
+
 def build() -> None:
     """Compile the sources into :func:`library_path`; raises with nvcc's
     diagnostics on a failed build."""
     so = library_path()
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)          # atomic: concurrent builds race safely
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [so.with_name(f"{tag}.{s}.o") for s in SOURCES]
+    tmp = so.with_name(f"{tag}.so.tmp")
+    nvcc = _nvcc()
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / s)]
+              for s, o in zip(SOURCES, objs)])
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+        os.replace(tmp, so)      # atomic: concurrent builds race safely
+    finally:
+        for o in (*objs, tmp):
+            o.unlink(missing_ok=True)
 
 
 @functools.cache
@@ -91,6 +116,9 @@ def lib() -> ctypes.CDLL:
     L.hrt1_resolve_deep.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
                                     i64, i32, i32, i32, i32, p]
     L.hrt1_resolve_deep.restype = ctypes.c_int
+    L.hrt1_encode.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                              i64, i32, i32, i32, i32, p]
+    L.hrt1_encode.restype = ctypes.c_int
     L.hrt1_error_string.argtypes = [ctypes.c_int]
     L.hrt1_error_string.restype = ctypes.c_char_p
     return L

@@ -38,6 +38,23 @@ def words_to_bytes(words: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(words).view(np.uint8)
 
 
+def interleave_words(yw: torch.Tensor, *, w: int) -> torch.Tensor:
+    """Width re-interleave in the words form: [nb, B/4] int32 words of the
+    lane-major (de-interleaved) decode output -> [nb, B/4] words of the
+    original byte stream (``out[p] = plane[p % w, p // w]``, bytes
+    little-endian in each word), for the ``w % 4 == 0`` widths.  The JAX
+    package composes bytes with shifts and masks to avoid a byte relayout
+    on the TPU; here the byte view is free, so it is one transpose."""
+    nb, W = yw.shape
+    B = 4 * W
+    if yw.dtype != torch.int32 or w % 4 or B % w:
+        raise ValueError(f"interleave_words wants int32 words and w % 4 == "
+                         f"0 dividing {B}, got {yw.dtype}, w={w}")
+    yb = yw.contiguous().view(torch.uint8)
+    return (yb.reshape(nb, w, B // w).transpose(1, 2).contiguous()
+            .view(torch.int32).reshape(nb, W))
+
+
 def _check(sym, count, lit_len, lits, n_cmds, n_lits, block_len,
            block_size: int, out_words: bool) -> None:
     dev = sym.device

@@ -60,9 +60,40 @@ def test_compress_device_backend_matches_host(codec):
                                  backend="host")
 
 
-def test_compress_kernel_backend_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.compress(b"abc", backend="kernel")
+def test_compress_kernel_backend_runs():
+    """backend="kernel" on the CPU runs the hrt1_encode wrapper's plain
+    version and launches no kernel."""
+    raw = _data(20_011, 7)
+    api.reset_kernel_launch_counts()
+    blob = api.compress(raw, "8 Bit", block_size=B, backend="kernel",
+                        device="cpu")
+    assert api.kernel_launch_counts()["hrt1_encode"] == 0
+    assert blob == japi.compress(raw, "8 Bit", block_size=B, backend="host")
+    assert api.decompress(blob, device="cpu") == raw
+    with pytest.raises(ValueError):
+        api.compress(raw, backend="pallas")
+
+
+@pytest.mark.parametrize("have_native", [True, False])
+def test_compress_auto_backend_rule(monkeypatch, have_native):
+    """auto: native if the library builds, else the kernel on CUDA, else
+    the plain device encoder; the bytes are the same either way."""
+    seen = []
+    real = api._encode_on_device
+
+    def spy(*a, kernel, **k):
+        seen.append(kernel)
+        return real(*a, kernel=kernel, **k)
+
+    monkeypatch.setattr(api, "_encode_on_device", spy)
+    if not have_native:
+        monkeypatch.setattr(api.native, "lib", lambda: None)
+    elif native.lib() is None:
+        pytest.skip("native runtime unavailable")
+    raw = _data(9_001, 8)
+    blob = api.compress(raw, "8 Bit", block_size=B, device="cpu")
+    assert seen == ([] if have_native else [False])
+    assert blob == japi.compress(raw, "8 Bit", block_size=B, backend="host")
 
 
 def test_compress_bounds_and_empty():
@@ -137,7 +168,7 @@ def test_decompress_matches_jax_kernel_path(layouts, layout):
 @pytest.mark.parametrize("codec", ["24 Bit (Symbol)", "32 Bit (Symbol)",
                                    "16 Bit (Symbol)"])
 def test_decompress_widths_with_tail_block(codec):
-    """Width codecs decode in byte lanes and re-interleave on the host,
+    """Width codecs decode in byte lanes and re-interleave on the device,
     including a partial tail block."""
     w = api.hrt1_params(api._resolve(codec))[0]
     raw = _data(5 * B * w // 2 + 7 * w - 1, 4)
@@ -218,6 +249,7 @@ def test_port_imports_no_jax():
         "import hypersonic_rle_kit_tpu_torch.api\n"
         "import hypersonic_rle_kit_tpu_torch.ops.decode_sup\n"
         "import hypersonic_rle_kit_tpu_torch.ops.device\n"
+        "import hypersonic_rle_kit_tpu_torch.ops.encode_sup\n"
         "import hypersonic_rle_kit_tpu_torch.ops.unpack_device\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"

@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from hypersonic_rle_kit_tpu.parallel import container
+from hypersonic_rle_kit_tpu.utils import native
 from hypersonic_rle_kit_tpu_torch import api
-from hypersonic_rle_kit_tpu_torch.ops import (_kernels, decode_sup, planar,
+from hypersonic_rle_kit_tpu_torch.ops import (_kernels, decode_sup, device,
+                                              encode_sup, planar,
                                               unpack_device)
 
 pytestmark = pytest.mark.cuda
@@ -35,15 +37,18 @@ def _dct(n, seed):
     return d
 
 
-def _columns(kind, B, nb, seed, min_count=6):
-    """Synthetic planar columns [nb, ...] for one edge case."""
+def _blocks(kind, B, nb, seed):
+    """[nb, B] input blocks of one edge case -> (x, block_len, only_sym or
+    None, min_count); x is zero past each block's length."""
     rng = np.random.default_rng(seed)
     lens = np.full(nb, B, np.int32)
+    only_sym, min_count = None, 6
     if kind == "dense":
         x = np.repeat(rng.integers(0, 251, (nb, B // 6 + 1)), 6,
                       axis=1)[:, :B].astype(np.uint8)
-    elif kind == "sparse":
+    elif kind in ("sparse", "min_count_4"):
         x = _dct(nb * B, seed).reshape(nb, B)
+        min_count = 6 if kind == "sparse" else 4
     elif kind == "all_literal":
         x = rng.integers(0, 256, (nb, B), dtype=np.uint8)
     elif kind == "whole_run":
@@ -51,16 +56,30 @@ def _columns(kind, B, nb, seed, min_count=6):
     elif kind == "ragged_tail":
         x = _dct(nb * B, seed).reshape(nb, B)
         lens[-3:] = [B - 777, 17, 0][-min(3, nb):]
+    elif kind == "single":
+        # a long run of another byte must become literals
+        x = _dct(nb * B, seed).reshape(nb, B)
+        x[:, B // 4:B // 2] = 9
+        only_sym = np.resize(np.array([0, 9, 3, -1], np.int32), nb)
     elif kind == "min_count_1":
         x = rng.integers(0, 2, (nb, B), dtype=np.uint8)
+        x[0] = np.arange(B) % 2          # n_cmds = B + 1, near capacity
         min_count = 1
     else:
         raise ValueError(kind)
     for b in range(nb):
         x[b, lens[b]:] = 0
+    return x, lens, only_sym, min_count
+
+
+def _columns(kind, B, nb, seed):
+    """Synthetic planar columns [nb, ...] for one edge case."""
+    x, lens, only_sym, min_count = _blocks(kind, B, nb, seed)
     cap = planar.capacity_for(B, min_count)
-    outs = [planar.host_encode_block(x[b, :lens[b]], cap, B, min_count)
-            for b in range(nb)]
+    outs = [planar.host_encode_block(
+        x[b, :lens[b]], cap, B, min_count,
+        None if only_sym is None else int(only_sym[b]))
+        for b in range(nb)]
     cols = [np.stack([o[i] for o in outs]) for i in range(4)]
     return cols + [np.array([o[i] for o in outs], np.int32)
                    for i in (4, 5)] + [lens]
@@ -205,3 +224,67 @@ def test_kernel_rejects_bad_input(dev):
     with pytest.raises(TypeError):
         decode_sup.decode_columns_device(*cols, block_size=4096)
     assert _kernels.lib() is not None
+
+
+# ---------------------------------------------------------------------------
+# hrt1_encode and the device compress path
+# ---------------------------------------------------------------------------
+
+ENCODE_CASES = ["dense", "sparse", "all_literal", "whole_run", "ragged_tail",
+                "single", "min_count_1", "min_count_4"]
+
+
+@pytest.mark.parametrize("B", [4096, 65536, 196608, 262144])
+@pytest.mark.parametrize("kind", ENCODE_CASES)
+def test_encode_kernel_matches_plain(dev, kind, B):
+    x, lens, only_sym, min_count = _blocks(kind, B, 4, 7)
+    t = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+    kw = dict(capacity=planar.capacity_for(B, min_count),
+              min_count=min_count, only_sym=t(only_sym))
+    k = encode_sup.encode_blocks_kernel(t(x), t(lens), **kw)
+    pb = device.encode_blocks(t(x), t(lens), **kw)
+    p = (pb.sym, pb.count, pb.lit_len, pb.lits, pb.n_cmds, pb.n_lits)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("sym", "count", "lit_len", "lits", "n_cmds",
+                           "n_lits"), k, p):
+        assert a.dtype == b.dtype and torch.equal(a, b), (kind, B, name)
+
+
+def test_encode_kernel_odd_block_and_unaligned(dev):
+    """A block size that is no multiple of 16 and a row view that is not
+    16-byte aligned take the byte-wise loads and stores."""
+    x, lens, _, _ = _blocks("sparse", 4099, 3, 2)
+    base = torch.from_numpy(x.reshape(-1)).to(dev)
+    for xt in (base.view(3, 4099), base[1:1 + 3 * 4096].view(3, 4096)):
+        bl = torch.full((3,), xt.shape[1] - 5, dtype=torch.int32, device=dev)
+        kw = dict(capacity=planar.capacity_for(xt.shape[1], 6))
+        k = encode_sup.encode_blocks_kernel(xt, bl, **kw)
+        pb = device.encode_blocks(xt, bl, **kw)
+        for a, b in zip(k, (pb.sym, pb.count, pb.lit_len, pb.lits,
+                            pb.n_cmds, pb.n_lits)):
+            assert torch.equal(a, b)
+
+
+def test_encode_kernel_rejects_overflow_and_bad_lengths(dev):
+    x = torch.from_numpy(np.arange(4096) % 2).to(torch.uint8).to(dev)[None]
+    bl = torch.tensor([4096], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="capacity"):
+        encode_sup.encode_blocks_kernel(x, bl, capacity=256, min_count=1)
+    with pytest.raises(ValueError, match="block_len"):
+        encode_sup.encode_blocks_kernel(x, bl + 1, capacity=8192)
+    with pytest.raises(TypeError):
+        encode_sup.encode_blocks_kernel(x, bl.long(), capacity=8192)
+
+
+@pytest.mark.parametrize("codec", ["8 Bit", "8 Bit Single", "8 Bit Packed",
+                                   "16 Bit (Symbol)", "24 Bit (Symbol)",
+                                   "32 Bit (Symbol)", "128 Bit (Symbol)"])
+def test_compress_kernel_matches_native(dev, codec):
+    if native.lib() is None:
+        pytest.skip("native runtime unavailable")
+    raw = _dct(3 * 262144 + 1001, 4).tobytes()
+    api.reset_kernel_launch_counts()
+    blob = api.compress(raw, codec, backend="kernel", device=dev)
+    assert api.kernel_launch_counts()["hrt1_encode"] == 1
+    assert blob == api.compress(raw, codec, backend="native")
+    assert api.decompress(blob, device=dev) == raw
