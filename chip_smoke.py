@@ -29,6 +29,22 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    card; the wall time of one whole decompress (64 MiB DCT, and the 32-bit
    width row with the device re-interleave); the compress wall of the
    64 MiB DCT corpus split into its stages.
+6. K4: word_slice_sum and word_sampled_prefix on the word microbenchmark's
+   [256, 2048, 128] bf16 plane (their main path, counted), each equal to
+   every plain formulation of its function (the five Pallas bodies of
+   scripts/micro_word.py), and all seven timed.
+7. reference streams: decompress_ref_device on the card of "8 Bit" on
+   32 MiB of the DCT corpus and of one codec per family and width on
+   16 MiB + 13 B, each equal to its input and decoded by hrt1_decode
+   alone; the 32 MiB row's wall split (host walk | H2D | kernel |
+   re-interleave | D2H).
+8. Low Entropy (+Short) of 4 MiB and an rle8m container of 32
+   subsections, decoded on the card, equal to the input; the Python
+   walker's share of each wall.
+9. MMTF: mmtf_scan equal to its plain version on [8, 4096] (16 and 32
+   lanes, both ways); mmtf_transform of 1 MiB + 11 B (its main path,
+   counted) equal to formats.mmtf and round-tripping; Bit-MMTF 8 / 16 on
+   16 MiB; mmtf_scan timed on 1 MiB beside its plain version.
 
 The line before the last is one JSON object with each kernel's route,
 source, replaced TPU kernel, launches, max |error| and times; the last line
@@ -47,11 +63,14 @@ import numpy as np
 import torch
 
 import bench
+from hypersonic_rle_kit_tpu.formats import low_entropy, mmtf, registry
 from hypersonic_rle_kit_tpu.parallel import container
 from hypersonic_rle_kit_tpu.utils import native
 from hypersonic_rle_kit_tpu_torch import api
 from hypersonic_rle_kit_tpu_torch.ops import (_kernels, decode_sup, device,
-                                              encode_sup, planar,
+                                              encode_sup, low_entropy_device,
+                                              micro_word, mmtf_device, planar,
+                                              ref_device, transfer,
                                               unpack_device)
 
 MIB = 1 << 20
@@ -67,7 +86,21 @@ KERNELS = {
         route="cuda",
         source="hypersonic_rle_kit_tpu_torch/csrc/hrt1_encode.cu",
         replaces="hypersonic_rle_kit_tpu/ops/encode_sup.py:298"),
+    "word_slice_sum": dict(
+        route="cuda", source="hypersonic_rle_kit_tpu_torch/csrc/micro_word.cu",
+        replaces="scripts/micro_word.py:72"),
+    "word_sampled_prefix": dict(
+        route="cuda", source="hypersonic_rle_kit_tpu_torch/csrc/micro_word.cu",
+        replaces="scripts/micro_word.py:72"),
+    "mmtf_scan": dict(
+        route="cuda", source="hypersonic_rle_kit_tpu_torch/csrc/mmtf.cu",
+        replaces="hypersonic_rle_kit_tpu/ops/mmtf_device.py:62"),
 }
+# ref_device rows: one codec per family and width
+REF_CODECS = ("8 Bit Packed", "8 Bit Single Short", "16 Bit Packed (Symbol)",
+              "24 Bit (Symbol)", "64 Bit 3LUT (Symbol)",
+              "32 Bit 1LUT Short (Symbol)", "128 Bit Packed (Byte)")
+REF_MIB = 16            # host encoders take 1-5 s per codec at this size
 
 
 def log(*a):
@@ -283,7 +316,7 @@ def compress_split(raw: bytes, dev, reps: int = 3) -> dict:
     for _ in range(reps):
         t = [time.perf_counter()]
         x, lens = api._to_blocks(np.frombuffer(raw, np.uint8), B)
-        xd, tl = api._to_device(x, dev), api._to_device(lens, dev)
+        xd, tl = transfer.to_device(x, dev), transfer.to_device(lens, dev)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         cols = encode_sup.encode_blocks_kernel(xd, tl, capacity=cap,
@@ -300,6 +333,243 @@ def compress_split(raw: bytes, dev, reps: int = 3) -> dict:
         raise AssertionError("compress stages != native compress")
     return dict(zip(("to_blocks_h2d", "encode", "d2h", "serialize"),
                     best.tolist()))
+
+
+# ---------------------------------------------------------------------------
+# phases 6-9: K4, reference streams, Low Entropy / rle8m, MMTF
+# ---------------------------------------------------------------------------
+
+def k4_phase(dev, card: str):
+    """K4 at the word microbenchmark's shape: both kernels on their main
+    path (counts reset just before, read just after), then each equal to
+    every plain formulation of its function, then the times."""
+    rng = np.random.default_rng(0)
+    pv = torch.from_numpy(rng.integers(-4, 5, (256, 2048, 128),
+                                       dtype=np.int64).astype(np.float32)
+                          ).to(dev).to(torch.bfloat16)
+    api.reset_kernel_launch_counts()
+    outs = {"word_slice_sum": micro_word.word_slice_sum(pv),
+            "word_sampled_prefix": micro_word.word_sampled_prefix(pv)}
+    torch.cuda.synchronize()
+    counts = api.kernel_launch_counts()
+    launches = {k: counts[k] for k in outs}
+    errs = dict.fromkeys(outs, 0)
+    for name, fn in micro_word.PLAIN.items():
+        k = "word_slice_sum" if "slice" in name else "word_sampled_prefix"
+        err = max_abs_err(outs[k], fn(pv))
+        if err:
+            raise AssertionError(f"{k} != plain {name!r}: err={err}")
+        errs[k] = max(errs[k], err)
+        log(f"  {k} == plain {name!r} on [256, 2048, 128] bf16")
+    t = cuda_ms({**{k: (lambda fn=getattr(micro_word, k): fn(pv))
+                    for k in outs},
+                 **{n: (lambda fn=fn: fn(pv))
+                    for n, fn in micro_word.PLAIN.items()}},
+                reps=7, calls=5)
+    gb = (pv.numel() * 2 + outs["word_slice_sum"].numel() * 4) / 1e9
+    log(f"[{card}] K4 (128 MiB bf16 in, 64 MiB int32 out): "
+        + "; ".join(f"{n} {ms:.4f} ms" for n, ms in t.items())
+        + f"; kernels {gb / t['word_slice_sum'] * 1e3:.1f} / "
+        f"{gb / t['word_sampled_prefix'] * 1e3:.1f} GB/s moved")
+    plain = {"word_slice_sum": min(t["slice-only(bf16->f32 sum)"],
+                                   t["slice-i32"]),
+             "word_sampled_prefix": min(t["16 small matmuls"],
+                                        t["4 fused [128,512]"],
+                                        t["1 big [512,512]"])}
+    times = {k: (t[k], plain[k]) for k in outs}
+    return launches, errs, times
+
+
+def ref_rows(dct: bytes) -> dict:
+    """name -> (raw, codec, blob) of the reference-stream rows."""
+    t0 = time.perf_counter()
+    rows = {"dct32_8bit": (dct[:32 * MIB], "8 Bit")}
+    src = bench.make_dataset(REF_MIB + 1, seed=5).tobytes()
+    for codec in REF_CODECS:
+        rows[codec] = (src[:REF_MIB * MIB + 13], codec)
+    out = {}
+    for name, (raw, codec) in rows.items():
+        blob = registry.compress(raw, codec)
+        out[name] = (raw, codec, blob)
+        log(f"  ref input {name!r}: {len(raw)} B -> {len(blob)} B "
+            f"({100 * len(blob) / len(raw):.2f}%)")
+    log(f"ref inputs (host encoders): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def ref_split(blob: bytes, codec: str, raw: bytes, dev, reps: int = 3):
+    """decompress_ref_device in its stages, each closed by a synchronize,
+    best of ``reps`` per stage (ms)."""
+    cspec = ref_device.codec_spec(codec)
+    best = None
+    for _ in range(reps):
+        t = [time.perf_counter()]
+        cols, usize, s, B = ref_device.walk(blob, cspec)
+        t.append(time.perf_counter())
+        cd = [transfer.to_device(np.ascontiguousarray(c), dev) for c in cols]
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        y = decode_sup.decode_columns_device(*cd, block_size=B)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        z = ref_device.interleave(y, s=s, m=-(-usize // s))[:usize]
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        (out,) = transfer.to_host(z)
+        t.append(time.perf_counter())
+        ms = np.diff(t) * 1e3
+        best = ms if best is None else np.minimum(best, ms)
+    if out.tobytes() != raw:
+        raise AssertionError(f"ref stages ({codec}) != input")
+    return dict(zip(("host_walk", "h2d", "kernel", "reinterleave", "d2h"),
+                    best.tolist()))
+
+
+def ref_phase(dct: bytes, dev, card: str) -> dict:
+    rows = ref_rows(dct)
+    api.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    outs = {name: ref_device.decompress_ref_device(blob, codec, device=dev)
+            for name, (raw, codec, blob) in rows.items()}
+    wall = time.perf_counter() - t0
+    launches = api.kernel_launch_counts()
+    if launches != {**dict.fromkeys(launches, 0), "hrt1_decode": len(rows)}:
+        raise AssertionError(f"ref streams did not decode through "
+                             f"hrt1_decode alone: {launches}")
+    for name, (raw, codec, blob) in rows.items():
+        if outs[name] != raw:
+            raise AssertionError(f"decompress_ref_device({name}) != input")
+    log(f"ref streams: {len(rows)} rows equal their input ({wall:.2f} s); "
+        f"launches {launches}")
+    raw, codec, blob = rows["dct32_8bit"]
+    split = ref_split(blob, codec, raw, dev)
+    w = best_wall(lambda: ref_device.decompress_ref_device(blob, codec,
+                                                           device=dev))
+    log(f"[{card}] ref stream wall (32 MiB DCT, 8 Bit), best of 3: "
+        + " | ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f" ms; whole call {w * 1e3:.1f} ms = {len(raw) / 1e9 / w:.3f} GB/s")
+    for name in ("24 Bit (Symbol)", "128 Bit Packed (Byte)"):
+        raw, codec, blob = rows[name]
+        sp = ref_split(blob, codec, raw, dev)
+        log(f"[{card}] ref stream split ({name}, {len(raw)} B): "
+            + " | ".join(f"{k} {v:.2f}" for k, v in sp.items()) + " ms")
+    return launches
+
+
+def le_split(blob: bytes, walk, dev, reps: int = 3):
+    """A Low Entropy decode in its stages, each closed by a synchronize,
+    best of ``reps`` per stage (ms); the output D2H copies whole blocks."""
+    best = None
+    for _ in range(reps):
+        t = [time.perf_counter()]
+        cols, B, _ = walk(blob)
+        t.append(time.perf_counter())
+        cd = [transfer.to_device(np.ascontiguousarray(c), dev) for c in cols]
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        y = decode_sup.decode_columns_device(*cd, block_size=B)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        transfer.to_host(y)
+        t.append(time.perf_counter())
+        ms = np.diff(t) * 1e3
+        best = ms if best is None else np.minimum(best, ms)
+    return dict(zip(("host_walk", "h2d", "kernel", "d2h"), best.tolist())), \
+        cols, B
+
+
+def le_phase(dct: bytes, dev, card: str) -> dict:
+    """Low Entropy (+Short) of 4 MiB and an rle8m container of 32
+    subsections of 4 MiB, decoded on the card."""
+    raw = dct[:4 * MIB]
+    rows = {"le": (low_entropy.le_compress(raw),
+                   low_entropy_device.le_decompress_device,
+                   low_entropy_device.walk_le),
+            "le_short": (low_entropy.le_compress(raw, short=True),
+                         low_entropy_device.le_decompress_device,
+                         low_entropy_device.walk_le),
+            "rle8m_32": (low_entropy.rle8m_compress(32, raw),
+                         low_entropy_device.rle8m_decompress_device,
+                         low_entropy_device.walk_rle8m)}
+    api.reset_kernel_launch_counts()
+    for name, (blob, fn, _) in rows.items():
+        if fn(blob, device=dev) != raw:
+            raise AssertionError(f"{name} device decode != input")
+    launches = api.kernel_launch_counts()
+    if launches["hrt1_decode"] != len(rows):
+        raise AssertionError(f"LE rows: launches {launches}")
+    for name, (blob, fn, walk) in rows.items():
+        w = best_wall(lambda: fn(blob, device=dev))
+        sp, cols, B = le_split(blob, walk, dev)
+        log(f"[{card}] {name}: {len(raw)} B from {len(blob)} B "
+            f"({cols[0].shape[0]} blocks of {B} B, {cols[0].shape[1]} "
+            f"command slots), wall {w * 1e3:.1f} ms best of 3; stages "
+            + " | ".join(f"{k} {v:.2f}" for k, v in sp.items())
+            + f" ms; the Python walker is "
+            f"{100 * sp['host_walk'] / sum(sp.values()):.1f}% of the stages")
+    log(f"LE / rle8m: {len(rows)} rows equal their input; launches "
+        f"{launches}")
+    return launches
+
+
+def mmtf_phase(dev, card: str):
+    """mmtf_scan vs its plain version, mmtf_transform (its main path) vs the
+    host format, Bit-MMTF round trips, times."""
+    rng = np.random.default_rng(9)
+    err = 0
+    for lanes in (16, 32):
+        x = torch.from_numpy(rng.integers(0, 256, (8, 4096), dtype=np.uint8)
+                             ).to(dev)
+        x[:4] = x[:4] % 7                       # skewed blocks beside random
+        for encode in (True, False):
+            k = mmtf_device.mmtf_scan(x, lanes=lanes, encode=encode)
+            p = mmtf_device.mmtf_scan_plain(x, lanes=lanes, encode=encode)
+            torch.cuda.synchronize()
+            e = max(max_abs_err(a, b) for a, b in zip(k, p))
+            if e:
+                raise AssertionError(f"mmtf_scan != plain: lanes={lanes} "
+                                     f"encode={encode} err={e}")
+            err = max(err, e)
+        log(f"  mmtf_scan == plain on [8, 4096], {lanes} lanes, both ways")
+    data = bench.make_dataset(2)[:MIB + 11].tobytes()
+    api.reset_kernel_launch_counts()
+    for lanes in (16, 32):
+        enc = mmtf_device.mmtf_transform(data, lanes=lanes, encode=True,
+                                         device=dev)
+        if enc != mmtf._mmtf(data, lanes, encode=True):
+            raise AssertionError(f"mmtf_transform({lanes}) != formats.mmtf")
+        if mmtf_device.mmtf_transform(enc, lanes=lanes, encode=False,
+                                      device=dev) != data:
+            raise AssertionError(f"mmtf_transform({lanes}) round trip")
+    launches = {"mmtf_scan": api.kernel_launch_counts()["mmtf_scan"]}
+    log(f"mmtf_transform of {len(data)} B: 16 and 32 lanes equal "
+        f"formats.mmtf and round-trip; launches {launches}")
+    big = bench.make_dataset(16)
+    for unit, host in ((1, mmtf.bitmmtf8_encode), (2, mmtf.bitmmtf16_encode)):
+        x = torch.from_numpy(big).to(dev)[None]
+        enc = mmtf_device.bitmmtf_encode_device(x, unit=unit)
+        if enc.cpu().numpy().tobytes() != host(big):
+            raise AssertionError(f"Bit-MMTF {8 * unit} != host encode")
+        if not torch.equal(mmtf_device.bitmmtf_decode_device(enc, unit=unit),
+                           x):
+            raise AssertionError(f"Bit-MMTF {8 * unit} round trip")
+    log("Bit-MMTF 8 / 16: 16 MiB equal the host encode and round-trip")
+    x1 = torch.from_numpy(np.frombuffer(data[:MIB], np.uint8).copy()
+                          ).to(dev)[None]
+    t = cuda_ms({"mmtf_scan": lambda: mmtf_device.mmtf_scan(
+        x1, lanes=16, encode=True)}, reps=5, calls=2)
+    # the plain scan is ~65 k steps of torch ops: one call, already warm
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    mmtf_device.mmtf_scan_plain(x1, lanes=16, encode=True)
+    e.record()
+    e.synchronize()
+    t["mmtf_plain"] = s.elapsed_time(e)
+    log(f"[{card}] mmtf_scan, 1 MiB DCT, 16 lanes, one block: kernel "
+        f"{t['mmtf_scan']:.4f} ms, plain {t['mmtf_plain']:.4f} ms "
+        f"({MIB // 16} steps of torch ops)")
+    return launches, err, (t["mmtf_scan"], t["mmtf_plain"])
+
 
 
 def main() -> int:
@@ -368,7 +638,7 @@ def main() -> int:
     log("  hrt1_decode == plain on the DCT container's resolved columns")
     err_k3 = check_encode_cases(dev)
     cap = planar.capacity_for(B, 6)
-    xd, tl = api._to_device(x, dev), api._to_device(lens, dev)
+    xd, tl = transfer.to_device(x, dev), transfer.to_device(lens, dev)
     ek = encode_sup.encode_blocks_kernel(xd, tl, capacity=cap, min_count=6)
     pb = device.encode_blocks(xd, tl, capacity=cap, min_count=6)
     err_k3 = max(err_k3, max(max_abs_err(a, b) for a, b in zip(ek, (
@@ -408,7 +678,7 @@ def main() -> int:
             raise AssertionError(f"decompress({name}) != input")
     log(f"main path, decompress: {len(rows)} round trips equal their input "
         f"({main_s:.2f} s of decompress); launches {dl}")
-    for k in KERNELS:
+    for k in ("hrt1_decode", "hrt1_resolve_deep", "hrt1_encode"):
         if launches[k] < 1:
             raise AssertionError(f"{k} never launched on the main path")
     del outs
@@ -471,13 +741,28 @@ def main() -> int:
 
     errs = {"hrt1_decode": err_k1, "hrt1_resolve_deep": err_k2,
             "hrt1_encode": err_k3}
-    plain = {"hrt1_decode": "decode_plain",
-             "hrt1_resolve_deep": "resolve_plain",
-             "hrt1_encode": "encode_plain"}
+    times = {k: (kt[k], kt[p]) for k, p in (
+        ("hrt1_decode", "decode_plain"), ("hrt1_resolve_deep", "resolve_plain"),
+        ("hrt1_encode", "encode_plain"))}
+
+    # ---- 6-9. K4, reference streams, Low Entropy / rle8m, MMTF ----
+    k4_launches, k4_errs, k4_times = k4_phase(dev, card)
+    launches.update(k4_launches)
+    errs.update(k4_errs)
+    times.update(k4_times)
+    ref_phase(dct, dev, card)
+    le_phase(dct, dev, card)
+    mmtf_launches, errs["mmtf_scan"], times["mmtf_scan"] = mmtf_phase(dev,
+                                                                       card)
+    launches.update(mmtf_launches)
+    for k in KERNELS:
+        if launches[k] < 1:
+            raise AssertionError(f"{k} never launched on its main path")
+
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         dict(name=k, **meta, launches=launches[k], max_abs_err=errs[k],
-             ms=kt[k], plain_ms=kt[plain[k]])
+             ms=times[k][0], plain_ms=times[k][1])
         for k, meta in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ formats, HRT1 container, native host runtime) are shared, not copied:
 - :mod:`spec`, :mod:`formats` -- re-exported from the JAX package.
 - :mod:`~hypersonic_rle_kit_tpu_torch.ops` -- torch tensor ops and the
   hand-written Hopper kernels (``csrc/*.cu``) of the HRT1 encode and
-  decode paths.
+  decode paths, the reference-format and Low Entropy decoders, MMTF and
+  the word microbenchmark.
 - :mod:`~hypersonic_rle_kit_tpu_torch.api` -- ``compress`` / ``decompress``.
 
 Importing the package touches no CUDA state and imports no JAX.

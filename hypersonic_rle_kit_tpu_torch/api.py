@@ -27,6 +27,7 @@ from hypersonic_rle_kit_tpu.utils import native
 
 from .ops import _kernels, decode_sup, device as device_ops, encode_sup
 from .ops import planar, unpack_device
+from .ops.transfer import to_device, to_host
 
 # per-family minimum run length for the HRT1 cost model: one command must
 # not cost more than it saves (8-bit commands cost ~3 bytes)
@@ -146,38 +147,14 @@ def _dominant_bytes(x: np.ndarray, tlens: np.ndarray) -> np.ndarray:
                      for b in range(x.shape[0])], np.int32)
 
 
-def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Host array -> tensor on ``dev``; to CUDA through a pinned buffer."""
-    t = torch.from_numpy(a)
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t.to(dev)
-
-
-def _to_host(*ts: torch.Tensor) -> list[np.ndarray]:
-    """Tensors -> numpy arrays; from CUDA through pinned buffers, every copy
-    queued before one synchronisation."""
-    outs, stream = [], None
-    for t in ts:
-        if t.device.type == "cuda":
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-            stream = torch.cuda.current_stream(t.device)
-            t = host
-        outs.append(t)
-    if stream is not None:
-        stream.synchronize()
-    return [t.numpy() for t in outs]
-
-
 def _columns_to_host(sym, count, lit_len, lits, n_cmds, n_lits) -> list:
     """Device columns -> numpy columns for ``container.serialize_blocks``,
     which reads only ``[:n_cmds]`` / ``[:n_lits]`` of a row: the rows cross
     trimmed to the widest block's counts."""
-    nc, nl = _to_host(n_cmds, n_lits)
+    nc, nl = to_host(n_cmds, n_lits)
     c, m = max(int(nc.max()), 1), max(int(nl.max()), 1)
-    return _to_host(sym[:, :c], count[:, :c], lit_len[:, :c],
-                    lits[:, :m]) + [nc, nl]
+    return to_host(sym[:, :c], count[:, :c], lit_len[:, :c],
+                   lits[:, :m]) + [nc, nl]
 
 
 def _encode_on_device(x: np.ndarray, lens: np.ndarray, w: int, cap: int,
@@ -186,9 +163,9 @@ def _encode_on_device(x: np.ndarray, lens: np.ndarray, w: int, cap: int,
     """[nb, B] host blocks (original lengths ``lens``) -> numpy columns of
     the transformed blocks, encoded on ``dev`` by the hrt1_encode wrapper
     (``kernel``) or the plain torch encoder."""
-    xd = _deinterleave(_to_device(x, dev), lens, w)
-    tl = _to_device(_lane_lens(lens, w), dev)
-    os_ = None if only_sym is None else _to_device(only_sym, dev)
+    xd = _deinterleave(to_device(x, dev), lens, w)
+    tl = to_device(_lane_lens(lens, w), dev)
+    os_ = None if only_sym is None else to_device(only_sym, dev)
     if kernel:
         cols = encode_sup.encode_blocks_kernel(
             xd, tl, capacity=cap, min_count=min_count, only_sym=os_)
@@ -252,7 +229,7 @@ def compress(data, codec: str | int | spec_mod.CodecSpec = "8 Bit", *,
 
 def _to_host_bytes(y: torch.Tensor, words: bool) -> np.ndarray:
     """Device output -> host bytes; from CUDA through one pinned buffer."""
-    (yh,) = _to_host(y)
+    (yh,) = to_host(y)
     return decode_sup.words_to_bytes(yh) if words else yh
 
 

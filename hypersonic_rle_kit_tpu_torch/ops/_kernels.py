@@ -25,10 +25,12 @@ import subprocess
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("hrt1_decode.cu", "hrt1_resolve.cu", "hrt1_encode.cu")
+SOURCES = ("hrt1_decode.cu", "hrt1_resolve.cu", "hrt1_encode.cu",
+           "micro_word.cu", "mmtf.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
-KERNELS = ("hrt1_decode", "hrt1_resolve_deep", "hrt1_encode")
+KERNELS = ("hrt1_decode", "hrt1_resolve_deep", "hrt1_encode",
+           "word_slice_sum", "word_sampled_prefix", "mmtf_scan")
 
 _launches = dict.fromkeys(KERNELS, 0)
 
@@ -119,6 +121,12 @@ def lib() -> ctypes.CDLL:
     L.hrt1_encode.argtypes = [p, p, p, p, p, p, p, p, p, p,
                               i64, i32, i32, i32, i32, p]
     L.hrt1_encode.restype = ctypes.c_int
+    L.word_slice_sum.argtypes = [p, p, i64, i32, i32, p]
+    L.word_slice_sum.restype = ctypes.c_int
+    L.word_sampled_prefix.argtypes = [p, p, i64, i32, p]
+    L.word_sampled_prefix.restype = ctypes.c_int
+    L.mmtf_scan.argtypes = [p, p, p, i64, i64, i32, i32, p]
+    L.mmtf_scan.restype = ctypes.c_int
     L.hrt1_error_string.argtypes = [ctypes.c_int]
     L.hrt1_error_string.restype = ctypes.c_char_p
     return L

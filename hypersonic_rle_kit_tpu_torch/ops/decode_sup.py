@@ -19,6 +19,7 @@ import torch
 from . import _kernels
 from .device import decode_blocks
 from .planar import PlanarBlocks
+from .transfer import to_device
 
 MAX_BLOCK = 1 << 28     # keeps the kernel's saturating int32 prefixes exact
 
@@ -143,3 +144,13 @@ def decode_columns_device(sym, count, lit_len, lits, n_cmds, n_lits,
         return out
     ob = out.view(torch.uint8)
     return ob if 4 * W == B else ob[:, :B].contiguous()
+
+
+def decode_host_columns(cols, *, block_size: int, device) -> torch.Tensor:
+    """Numpy planar columns ``(sym, count, lit_len, lits, n_cmds, n_lits,
+    block_len)`` -> decoded ``[nb, block_size]`` uint8 on ``device``: each
+    column crosses through a pinned buffer, then
+    :func:`decode_columns_device` decodes them."""
+    dev = torch.device(device)
+    t = [to_device(np.ascontiguousarray(c), dev) for c in cols]
+    return decode_columns_device(*t, block_size=block_size)

@@ -17,8 +17,9 @@ from hypersonic_rle_kit_tpu.parallel import container
 from hypersonic_rle_kit_tpu.utils import native
 from hypersonic_rle_kit_tpu_torch import api
 from hypersonic_rle_kit_tpu_torch.ops import (_kernels, decode_sup, device,
-                                              encode_sup, planar,
-                                              unpack_device)
+                                              encode_sup, low_entropy_device,
+                                              micro_word, mmtf_device, planar,
+                                              ref_device, unpack_device)
 
 pytestmark = pytest.mark.cuda
 
@@ -288,3 +289,103 @@ def test_compress_kernel_matches_native(dev, codec):
     assert api.kernel_launch_counts()["hrt1_encode"] == 1
     assert blob == api.compress(raw, codec, backend="native")
     assert api.decompress(blob, device=dev) == raw
+
+
+# ---------------------------------------------------------------------------
+# K4 (word_slice_sum, word_sampled_prefix), mmtf_scan, and the reference /
+# Low Entropy streams decoded on the card
+# ---------------------------------------------------------------------------
+
+def _plane(shape, seed, dev, offset=0):
+    """bf16 plane of integers in -4..4; ``offset`` elements into a larger
+    buffer, so the data pointer can be misaligned."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(rng.integers(-4, 5, n + offset).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    return flat[offset:].view(shape)
+
+
+@pytest.mark.parametrize("shape,offset", [((4, 64, 128), 0),
+                                          ((3, 20, 128), 1),
+                                          ((5, 8, 128), 4),
+                                          ((256, 2048, 128), 0)])
+def test_word_kernels_match_plain(dev, shape, offset):
+    x = _plane(shape, sum(shape), dev, offset)
+    ss = micro_word.word_slice_sum(x)
+    sp = micro_word.word_sampled_prefix(x)
+    for name, fn in micro_word.PLAIN.items():
+        want = fn(x)
+        assert torch.equal(ss if "slice" in name else sp, want), name
+
+
+@pytest.mark.parametrize("shape,offset", [((3, 12, 5), 0), ((1, 4, 1), 0),
+                                          ((2, 8, 130), 1), ((7, 4, 64), 2)])
+def test_word_slice_sum_odd_shapes(dev, shape, offset):
+    x = _plane(shape, 3, dev, offset)
+    k = micro_word.word_slice_sum(x)
+    assert torch.equal(k, micro_word.slice_sum_f32(x))
+    assert torch.equal(k, micro_word.slice_sum_i32(x))
+
+
+def test_word_kernels_count_launches(dev):
+    x = _plane((2, 8, 128), 1, dev)
+    api.reset_kernel_launch_counts()
+    micro_word.word_slice_sum(x)
+    micro_word.word_sampled_prefix(x)
+    n = api.kernel_launch_counts()
+    assert n["word_slice_sum"] == 1 and n["word_sampled_prefix"] == 1
+
+
+@pytest.mark.parametrize("lanes", [1, 16, 32])
+@pytest.mark.parametrize("encode", [True, False])
+def test_mmtf_scan_matches_plain(dev, lanes, encode):
+    rng = np.random.default_rng(lanes)
+    for nb, units in ((3, 37), (1, 1), (2, 0), (8, 256)):
+        x = torch.from_numpy(rng.integers(0, 256, (nb, units * lanes),
+                                          dtype=np.uint8)).to(dev)
+        x[:, ::3] %= 5
+        k = mmtf_device.mmtf_scan(x, lanes=lanes, encode=encode)
+        p = mmtf_device.mmtf_scan_plain(x, lanes=lanes, encode=encode)
+        torch.cuda.synchronize()
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+def test_mmtf_transform_on_card(dev):
+    from hypersonic_rle_kit_tpu.formats import mmtf as mmtf_host
+    data = _dct(100_000 + 11, 5).tobytes()
+    api.reset_kernel_launch_counts()
+    for lanes in (16, 32):
+        enc = mmtf_device.mmtf_transform(data, lanes=lanes, device=dev)
+        assert enc == mmtf_host._mmtf(data, lanes, encode=True)
+        assert mmtf_device.mmtf_transform(enc, lanes=lanes, encode=False,
+                                          device=dev) == data
+    assert api.kernel_launch_counts()["mmtf_scan"] == 4
+
+
+@pytest.mark.parametrize("codec", ["8 Bit", "8 Bit Packed", "8 Bit Single",
+                                   "8 Bit 3LUT Short", "16 Bit (Symbol)",
+                                   "24 Bit (Symbol)", "64 Bit 3LUT (Symbol)",
+                                   "128 Bit Packed (Byte)"])
+def test_ref_stream_on_card(dev, codec):
+    from hypersonic_rle_kit_tpu.formats import registry
+    raw = _dct(300_001, 6).tobytes()
+    blob = registry.compress(raw, codec)
+    api.reset_kernel_launch_counts()
+    for bs in (ref_device.DEFAULT_BLOCK, 3001):
+        assert ref_device.decompress_ref_device(blob, codec, block_size=bs,
+                                                device=dev) == raw
+    n = api.kernel_launch_counts()
+    assert n == {**dict.fromkeys(n, 0), "hrt1_decode": 2}
+
+
+@pytest.mark.parametrize("subs", [1, 3, 32])
+def test_low_entropy_on_card(dev, subs):
+    from hypersonic_rle_kit_tpu.formats import low_entropy as le
+    raw = _dct(200_003, subs).tobytes()
+    api.reset_kernel_launch_counts()
+    assert low_entropy_device.rle8m_decompress_device(
+        le.rle8m_compress(subs, raw), device=dev) == raw
+    assert low_entropy_device.le_decompress_device(
+        le.le_compress(raw, short=subs == 3), device=dev) == raw
+    assert api.kernel_launch_counts()["hrt1_decode"] == 2
