@@ -8,7 +8,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 1. card: torch must see a CUDA device; prints the card's name and power
    limit as nvidia-smi reports them.
 2. build: compiles the Hopper kernels from csrc/*.cu with nvcc, one
-   process per source, all started together.
+   process per source, all started together, into the codec's library
+   and the word microbenchmark's.
 3. kernels vs plain: hrt1_decode on synthetic columns (dense, sparse,
    all-literal, whole-block run, ragged tail, zero-count commands mid-stream,
    min_count 1; 4 KiB, 64 KiB and 256 KiB blocks), hrt1_resolve_deep on
@@ -36,14 +37,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 7. reference streams: decompress_ref_device on the card of "8 Bit" on
    32 MiB of the DCT corpus and of one codec per family and width on
    16 MiB + 13 B, each equal to its input and decoded by hrt1_decode
-   alone; the 32 MiB row's wall split (host walk | H2D | kernel |
-   re-interleave | D2H).
+   alone; then each row in the stages the entry point runs (host walk |
+   H2D | kernel | re-interleave | D2H), with hrt1_decode held against its
+   plain version on the row's device columns.
 8. Low Entropy (+Short) of 4 MiB and an rle8m container of 32
-   subsections, decoded on the card, equal to the input; the Python
-   walker's share of each wall.
+   subsections, decoded on the card, equal to the input; the same stage
+   split and plain comparison; the Python walker's share of each wall.
 9. MMTF: mmtf_scan equal to its plain version on [8, 4096] (16 and 32
    lanes, both ways); mmtf_transform of 1 MiB + 11 B (its main path,
-   counted) equal to formats.mmtf and round-tripping; Bit-MMTF 8 / 16 on
+   counted) equal to formats.mmtf and round-tripping, and its four scans
+   equal to the plain version at their shapes; Bit-MMTF 8 / 16 on
    16 MiB; mmtf_scan timed on 1 MiB beside its plain version.
 
 The line before the last is one JSON object with each kernel's route,
@@ -397,35 +400,40 @@ def ref_rows(dct: bytes) -> dict:
     return out
 
 
-def ref_split(blob: bytes, codec: str, raw: bytes, dev, reps: int = 3):
-    """decompress_ref_device in its stages, each closed by a synchronize,
-    best of ``reps`` per stage (ms)."""
-    cspec = ref_device.codec_spec(codec)
+def decode_split(walk, dev, finish_stage: str, reps: int = 3):
+    """One device decode in the stages its entry point runs: ``walk()`` ->
+    ``(cols, B, finish)``, decode_sup.columns_to_device, the hrt1_decode
+    kernel, ``finish`` on the device, the D2H copy; each closed by a
+    synchronize, best of ``reps`` per stage (ms).  Returns the stages, the
+    output bytes and hrt1_decode's max |error| against its plain version
+    on the same device columns."""
     best = None
     for _ in range(reps):
         t = [time.perf_counter()]
-        cols, usize, s, B = ref_device.walk(blob, cspec)
+        cols, B, finish = walk()
         t.append(time.perf_counter())
-        cd = [transfer.to_device(np.ascontiguousarray(c), dev) for c in cols]
+        cd = decode_sup.columns_to_device(cols, dev)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         y = decode_sup.decode_columns_device(*cd, block_size=B)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        z = ref_device.interleave(y, s=s, m=-(-usize // s))[:usize]
+        z = finish(y)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         (out,) = transfer.to_host(z)
         t.append(time.perf_counter())
         ms = np.diff(t) * 1e3
         best = ms if best is None else np.minimum(best, ms)
-    if out.tobytes() != raw:
-        raise AssertionError(f"ref stages ({codec}) != input")
-    return dict(zip(("host_walk", "h2d", "kernel", "reinterleave", "d2h"),
-                    best.tolist()))
+    err = max_abs_err(y, decode_sup.decode_columns_plain(*cd, block_size=B))
+    stages = ("host_walk", "h2d", "kernel", finish_stage, "d2h")
+    return dict(zip(stages, best.tolist())), out.tobytes(), err, cols
 
 
-def ref_phase(dct: bytes, dev, card: str) -> dict:
+def ref_phase(dct: bytes, dev, card: str) -> int:
+    """decompress_ref_device of every row (its main path, counted), then
+    each row in its stages with hrt1_decode held against its plain
+    version; returns the worst error."""
     rows = ref_rows(dct)
     api.reset_kernel_launch_counts()
     t0 = time.perf_counter()
@@ -441,46 +449,34 @@ def ref_phase(dct: bytes, dev, card: str) -> dict:
             raise AssertionError(f"decompress_ref_device({name}) != input")
     log(f"ref streams: {len(rows)} rows equal their input ({wall:.2f} s); "
         f"launches {launches}")
+    worst = 0
+    for name, (raw, codec, blob) in rows.items():
+        def walk(blob=blob, codec=codec):
+            cols, usize, s, B = ref_device.walk(blob,
+                                                ref_device.codec_spec(codec))
+            return cols, B, lambda y: ref_device.finish(y, usize, s)
+        split, out, err, cols = decode_split(walk, dev, "reinterleave")
+        if out != raw or err:
+            raise AssertionError(f"ref stages ({name}): output equal "
+                                 f"{out == raw}, hrt1_decode vs plain {err}")
+        worst = max(worst, err)
+        log(f"[{card}] ref stream split ({name}, {len(raw)} B, "
+            f"{cols[0].shape[0]} blocks), best of 3: "
+            + " | ".join(f"{k} {v:.2f}" for k, v in split.items())
+            + " ms; hrt1_decode == plain on these columns")
     raw, codec, blob = rows["dct32_8bit"]
-    split = ref_split(blob, codec, raw, dev)
     w = best_wall(lambda: ref_device.decompress_ref_device(blob, codec,
                                                            device=dev))
-    log(f"[{card}] ref stream wall (32 MiB DCT, 8 Bit), best of 3: "
-        + " | ".join(f"{k} {v:.2f}" for k, v in split.items())
-        + f" ms; whole call {w * 1e3:.1f} ms = {len(raw) / 1e9 / w:.3f} GB/s")
-    for name in ("24 Bit (Symbol)", "128 Bit Packed (Byte)"):
-        raw, codec, blob = rows[name]
-        sp = ref_split(blob, codec, raw, dev)
-        log(f"[{card}] ref stream split ({name}, {len(raw)} B): "
-            + " | ".join(f"{k} {v:.2f}" for k, v in sp.items()) + " ms")
-    return launches
+    log(f"[{card}] ref stream wall (32 MiB DCT, 8 Bit): whole call "
+        f"{w * 1e3:.1f} ms best of 3 = {len(raw) / 1e9 / w:.3f} GB/s")
+    return worst
 
 
-def le_split(blob: bytes, walk, dev, reps: int = 3):
-    """A Low Entropy decode in its stages, each closed by a synchronize,
-    best of ``reps`` per stage (ms); the output D2H copies whole blocks."""
-    best = None
-    for _ in range(reps):
-        t = [time.perf_counter()]
-        cols, B, _ = walk(blob)
-        t.append(time.perf_counter())
-        cd = [transfer.to_device(np.ascontiguousarray(c), dev) for c in cols]
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        y = decode_sup.decode_columns_device(*cd, block_size=B)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        transfer.to_host(y)
-        t.append(time.perf_counter())
-        ms = np.diff(t) * 1e3
-        best = ms if best is None else np.minimum(best, ms)
-    return dict(zip(("host_walk", "h2d", "kernel", "d2h"), best.tolist())), \
-        cols, B
-
-
-def le_phase(dct: bytes, dev, card: str) -> dict:
+def le_phase(dct: bytes, dev, card: str) -> int:
     """Low Entropy (+Short) of 4 MiB and an rle8m container of 32
-    subsections of 4 MiB, decoded on the card."""
+    subsections of 4 MiB, decoded on the card (their main path, counted),
+    then each in its stages with hrt1_decode held against its plain
+    version; returns the worst error."""
     raw = dct[:4 * MIB]
     rows = {"le": (low_entropy.le_compress(raw),
                    low_entropy_device.le_decompress_device,
@@ -496,25 +492,35 @@ def le_phase(dct: bytes, dev, card: str) -> dict:
         if fn(blob, device=dev) != raw:
             raise AssertionError(f"{name} device decode != input")
     launches = api.kernel_launch_counts()
-    if launches["hrt1_decode"] != len(rows):
+    if launches != {**dict.fromkeys(launches, 0), "hrt1_decode": len(rows)}:
         raise AssertionError(f"LE rows: launches {launches}")
-    for name, (blob, fn, walk) in rows.items():
+    worst = 0
+    for name, (blob, fn, walk_fn) in rows.items():
+        def walk(blob=blob, walk_fn=walk_fn):
+            cols, B, sizes = walk_fn(blob)
+            return cols, B, lambda y: low_entropy_device.join(y, sizes)
         w = best_wall(lambda: fn(blob, device=dev))
-        sp, cols, B = le_split(blob, walk, dev)
+        sp, out, err, cols = decode_split(walk, dev, "join")
+        if out != raw or err:
+            raise AssertionError(f"LE stages ({name}): output equal "
+                                 f"{out == raw}, hrt1_decode vs plain {err}")
+        worst = max(worst, err)
         log(f"[{card}] {name}: {len(raw)} B from {len(blob)} B "
-            f"({cols[0].shape[0]} blocks of {B} B, {cols[0].shape[1]} "
-            f"command slots), wall {w * 1e3:.1f} ms best of 3; stages "
+            f"({cols[0].shape[0]} blocks, {cols[0].shape[1]} command "
+            f"slots), wall {w * 1e3:.1f} ms best of 3; stages "
             + " | ".join(f"{k} {v:.2f}" for k, v in sp.items())
             + f" ms; the Python walker is "
-            f"{100 * sp['host_walk'] / sum(sp.values()):.1f}% of the stages")
+            f"{100 * sp['host_walk'] / sum(sp.values()):.1f}% of the "
+            f"stages; hrt1_decode == plain on these columns")
     log(f"LE / rle8m: {len(rows)} rows equal their input; launches "
         f"{launches}")
-    return launches
+    return worst
 
 
 def mmtf_phase(dev, card: str):
     """mmtf_scan vs its plain version, mmtf_transform (its main path) vs the
-    host format, Bit-MMTF round trips, times."""
+    host format, the main path's scans vs the plain version at their
+    shapes, Bit-MMTF round trips, times."""
     rng = np.random.default_rng(9)
     err = 0
     for lanes in (16, 32):
@@ -533,17 +539,44 @@ def mmtf_phase(dev, card: str):
         log(f"  mmtf_scan == plain on [8, 4096], {lanes} lanes, both ways")
     data = bench.make_dataset(2)[:MIB + 11].tobytes()
     api.reset_kernel_launch_counts()
+    encs = {}
     for lanes in (16, 32):
-        enc = mmtf_device.mmtf_transform(data, lanes=lanes, encode=True,
-                                         device=dev)
-        if enc != mmtf._mmtf(data, lanes, encode=True):
+        encs[lanes] = mmtf_device.mmtf_transform(data, lanes=lanes,
+                                                 encode=True, device=dev)
+        if encs[lanes] != mmtf._mmtf(data, lanes, encode=True):
             raise AssertionError(f"mmtf_transform({lanes}) != formats.mmtf")
-        if mmtf_device.mmtf_transform(enc, lanes=lanes, encode=False,
+        if mmtf_device.mmtf_transform(encs[lanes], lanes=lanes, encode=False,
                                       device=dev) != data:
             raise AssertionError(f"mmtf_transform({lanes}) round trip")
     launches = {"mmtf_scan": api.kernel_launch_counts()["mmtf_scan"]}
     log(f"mmtf_transform of {len(data)} B: 16 and 32 lanes equal "
         f"formats.mmtf and round-trip; launches {launches}")
+    # the four scans of that path at their shapes, outputs and final tables
+    # held against the plain version (~65 k steps of torch ops at 16 lanes,
+    # each call timed once)
+    plain_ms, x1 = {}, None
+    for lanes in (16, 32):
+        full = len(data) // lanes * lanes
+        for encode, src in ((True, data), (False, encs[lanes])):
+            x = torch.from_numpy(np.frombuffer(src, np.uint8)[:full].copy()
+                                 ).to(dev)[None]
+            k = mmtf_device.mmtf_scan(x, lanes=lanes, encode=encode)
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+            ev0.record()
+            p = mmtf_device.mmtf_scan_plain(x, lanes=lanes, encode=encode)
+            ev1.record()
+            ev1.synchronize()
+            plain_ms[lanes, encode] = ev0.elapsed_time(ev1)
+            e = max(max_abs_err(a, b) for a, b in zip(k, p))
+            if e:
+                raise AssertionError(f"mmtf_scan != plain on the main path: "
+                                     f"lanes={lanes} encode={encode} err={e}")
+            err = max(err, e)
+            if (lanes, encode) == (16, True):
+                x1 = x
+        log(f"  mmtf_scan == plain on the main path's [1, {full}], "
+            f"{lanes} lanes, both ways")
     big = bench.make_dataset(16)
     for unit, host in ((1, mmtf.bitmmtf8_encode), (2, mmtf.bitmmtf16_encode)):
         x = torch.from_numpy(big).to(dev)[None]
@@ -554,36 +587,30 @@ def mmtf_phase(dev, card: str):
                            x):
             raise AssertionError(f"Bit-MMTF {8 * unit} round trip")
     log("Bit-MMTF 8 / 16: 16 MiB equal the host encode and round-trip")
-    x1 = torch.from_numpy(np.frombuffer(data[:MIB], np.uint8).copy()
-                          ).to(dev)[None]
     t = cuda_ms({"mmtf_scan": lambda: mmtf_device.mmtf_scan(
-        x1, lanes=16, encode=True)}, reps=5, calls=2)
-    # the plain scan is ~65 k steps of torch ops: one call, already warm
-    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    s.record()
-    mmtf_device.mmtf_scan_plain(x1, lanes=16, encode=True)
-    e.record()
-    e.synchronize()
-    t["mmtf_plain"] = s.elapsed_time(e)
+        x1, lanes=16, encode=True)}, reps=5, calls=2)["mmtf_scan"]
     log(f"[{card}] mmtf_scan, 1 MiB DCT, 16 lanes, one block: kernel "
-        f"{t['mmtf_scan']:.4f} ms, plain {t['mmtf_plain']:.4f} ms "
-        f"({MIB // 16} steps of torch ops)")
-    return launches, err, (t["mmtf_scan"], t["mmtf_plain"])
-
+        f"{t:.4f} ms, plain {plain_ms[16, True]:.4f} ms ({MIB // 16} steps "
+        f"of torch ops); plain 16-lane decode {plain_ms[16, False]:.4f} ms, "
+        f"32 lanes {plain_ms[32, True]:.4f} / {plain_ms[32, False]:.4f} ms")
+    return launches, err, (t, plain_ms[16, True])
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     _kernels.build()
-    _kernels.lib()
+    for name in _kernels.LIBRARIES:
+        _kernels.lib(name)
     log(f"build: nvcc {' '.join(_kernels.NVCC_FLAGS)} -> "
-        f"{_kernels.library_path().name} in {time.perf_counter() - t0:.2f} s")
+        + ", ".join(_kernels.library_path(n).name for n in _kernels.LIBRARIES)
+        + f" in {time.perf_counter() - t0:.2f} s")
 
     # ---- inputs of the main paths: (raw, codec) and native blobs ----
     t0 = time.perf_counter()
@@ -750,8 +777,9 @@ def main() -> int:
     launches.update(k4_launches)
     errs.update(k4_errs)
     times.update(k4_times)
-    ref_phase(dct, dev, card)
-    le_phase(dct, dev, card)
+    errs["hrt1_decode"] = max(errs["hrt1_decode"],
+                              ref_phase(dct, dev, card),
+                              le_phase(dct, dev, card))
     mmtf_launches, errs["mmtf_scan"], times["mmtf_scan"] = mmtf_phase(dev,
                                                                        card)
     launches.update(mmtf_launches)
@@ -759,6 +787,7 @@ def main() -> int:
         if launches[k] < 1:
             raise AssertionError(f"{k} never launched on its main path")
 
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         dict(name=k, **meta, launches=launches[k], max_abs_err=errs[k],

@@ -22,8 +22,8 @@
 // loop, each thread owns four consecutive outputs (one 16-byte store).
 // Slice-sum reads 8 bytes from each of its four input rows; the sampled
 // prefix reads the 32 contiguous bytes its outputs need (two 16-byte loads),
-// so a warp reads 1 KiB in one contiguous run.  Unaligned or odd shapes
-// take a scalar path with one output a thread.
+// so a warp reads 1 KiB in one contiguous run.  The wrappers admit only
+// row % 4 == 0 and 16-byte-aligned x, which every such plane is.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,18 +41,13 @@ __device__ __forceinline__ float bf16_hi(uint32_t u) {
   return __uint_as_float(u & 0xffff0000u);
 }
 
-__device__ __forceinline__ float bf16(uint16_t h) {
-  return __uint_as_float(static_cast<uint32_t>(h) << 16);
-}
-
 __device__ __forceinline__ float tap4(float a, float b, float c, float d) {
   return 4.0f * a + 3.0f * b + 2.0f * c + d;
 }
 
-// Vector path: row % 4 == 0, x 8-byte aligned.  Thread item i holds outputs
-// [4i, 4i + 4) of the flattened [G, row] output.
-__global__ void slice_sum_vec(const uint16_t* __restrict__ x,
-                              int32_t* __restrict__ out, int64_t G, int row) {
+// Thread item i holds outputs [4i, 4i + 4) of the flattened [G, row] output.
+__global__ void slice_sum(const uint16_t* __restrict__ x,
+                          int32_t* __restrict__ out, int64_t G, int row) {
   const int rq = row >> 2;
   const int64_t items = G * rq;
   for (int64_t i = blockIdx.x * int64_t(kThreads) + threadIdx.x; i < items;
@@ -75,27 +70,11 @@ __global__ void slice_sum_vec(const uint16_t* __restrict__ x,
   }
 }
 
-__global__ void slice_sum_scalar(const uint16_t* __restrict__ x,
-                                 int32_t* __restrict__ out, int64_t G,
-                                 int row) {
-  const int64_t n = G * row;
-  for (int64_t o = blockIdx.x * int64_t(kThreads) + threadIdx.x; o < n;
-       o += int64_t(gridDim.x) * kThreads) {
-    const int64_t g = o / row;
-    const int64_t c = o - g * row;
-    const uint16_t* src = x + 4 * g * row + c;
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s += bf16(src[int64_t(j) * row]);
-    out[o] = __float2int_rz(s);
-  }
-}
-
-// Vector path: x 16-byte aligned (row is 128).  Thread item i holds outputs
-// c = 4q .. 4q + 3 of output row g (q = i % 32), which read the 16 inputs
-// y[16 (q & 7) .. + 16) of input row 4g + (q >> 3).
-__global__ void sampled_prefix_vec(const uint16_t* __restrict__ x,
-                                   int32_t* __restrict__ out, int64_t G) {
+// Row is 128.  Thread item i holds outputs c = 4q .. 4q + 3 of output row g
+// (q = i % 32), which read the 16 inputs y[16 (q & 7) .. + 16) of input row
+// 4g + (q >> 3).
+__global__ void sampled_prefix(const uint16_t* __restrict__ x,
+                               int32_t* __restrict__ out, int64_t G) {
   const int64_t items = G * 32;
   for (int64_t i = blockIdx.x * int64_t(kThreads) + threadIdx.x; i < items;
        i += int64_t(gridDim.x) * kThreads) {
@@ -115,18 +94,6 @@ __global__ void sampled_prefix_vec(const uint16_t* __restrict__ x,
   }
 }
 
-__global__ void sampled_prefix_scalar(const uint16_t* __restrict__ x,
-                                      int32_t* __restrict__ out, int64_t G) {
-  const int64_t n = G * 128;
-  for (int64_t o = blockIdx.x * int64_t(kThreads) + threadIdx.x; o < n;
-       o += int64_t(gridDim.x) * kThreads) {
-    // (4g + (c >> 5)) * 128 + 4 (c & 31) == 4 o, with o = 128 g + c
-    const uint16_t* y = x + 4 * o;
-    out[o] = __float2int_rz(tap4(bf16(y[0]), bf16(y[1]), bf16(y[2]),
-                                 bf16(y[3])));
-  }
-}
-
 unsigned grid_for(int64_t items) {
   const int64_t b = (items + kThreads - 1) / kThreads;
   return static_cast<unsigned>(b < kMaxBlocks ? (b > 0 ? b : 1) : kMaxBlocks);
@@ -137,39 +104,31 @@ unsigned grid_for(int64_t items) {
 extern "C" {
 
 // Launch on `stream`.  x bf16 [G * 4, row] (as raw uint16), out i32
-// [G, row], both contiguous, out 16-byte aligned.  `vec` != 0 selects the
-// vector path: row % 4 == 0 and x 8-byte aligned.  Returns
+// [G, row], both contiguous and 16-byte aligned, row % 4 == 0.  Returns
 // cudaGetLastError() after the launch.
 int word_slice_sum(const void* x, void* out, int64_t G, int32_t row,
-                   int32_t vec, void* stream) {
+                   void* stream) {
   if (G > 0 && row > 0) {
-    const auto xs = static_cast<const uint16_t*>(x);
-    const auto os = static_cast<int32_t*>(out);
-    const auto st = static_cast<cudaStream_t>(stream);
-    if (vec)
-      slice_sum_vec<<<grid_for(G * (row / 4)), kThreads, 0, st>>>(xs, os, G,
-                                                                  row);
-    else
-      slice_sum_scalar<<<grid_for(G * row), kThreads, 0, st>>>(xs, os, G, row);
+    slice_sum<<<grid_for(G * (row / 4)), kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint16_t*>(x), static_cast<int32_t*>(out), G, row);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch on `stream`.  x bf16 [G * 4, 128], out i32 [G, 128], contiguous,
-// out 16-byte aligned.  `vec` != 0 selects the vector path: x 16-byte
-// aligned.  Returns cudaGetLastError() after the launch.
-int word_sampled_prefix(const void* x, void* out, int64_t G, int32_t vec,
-                        void* stream) {
+// Launch on `stream`.  x bf16 [G * 4, 128], out i32 [G, 128], contiguous
+// and 16-byte aligned.  Returns cudaGetLastError() after the launch.
+int word_sampled_prefix(const void* x, void* out, int64_t G, void* stream) {
   if (G > 0) {
-    const auto xs = static_cast<const uint16_t*>(x);
-    const auto os = static_cast<int32_t*>(out);
-    const auto st = static_cast<cudaStream_t>(stream);
-    if (vec)
-      sampled_prefix_vec<<<grid_for(G * 32), kThreads, 0, st>>>(xs, os, G);
-    else
-      sampled_prefix_scalar<<<grid_for(G * 128), kThreads, 0, st>>>(xs, os, G);
+    sampled_prefix<<<grid_for(G * 32), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint16_t*>(x), static_cast<int32_t*>(out), G);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+const char* micro_word_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

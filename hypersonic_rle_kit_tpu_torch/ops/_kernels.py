@@ -1,12 +1,14 @@
 """Build and load the hand-written Hopper kernels (``../csrc/*.cu``).
 
 The sources are compiled with ``nvcc``, one process per source, all started
-together, and linked into one shared library with a plain C interface (no
+together, and linked into shared libraries with a plain C interface (no
 PyTorch headers, so a build takes seconds), at first use, into
-``build/torch_kernels/`` under the repository root, keyed by a hash of the
-sources and flags.  The library is loaded with ``ctypes``: every pointer
-and the stream pass as ``c_void_p``, and every entry point returns
-``cudaGetLastError()`` right after its launch.
+``build/torch_kernels/`` under the repository root, each keyed by a hash of
+its sources and flags.  There are two libraries: ``hrt1``, the codec's
+kernels, and ``micro_word``, the word microbenchmark's, so the codec never
+builds or loads the benchmark's code.  A library is loaded with ``ctypes``:
+every pointer and the stream pass as ``c_void_p``, and every entry point
+returns ``cudaGetLastError()`` right after its launch.
 
 Each kernel wrapper counts its launches here (``count_launch``), so a run
 can show that the main path went through the kernels.
@@ -25,14 +27,25 @@ import subprocess
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("hrt1_decode.cu", "hrt1_resolve.cu", "hrt1_encode.cu",
-           "micro_word.cu", "mmtf.cu")
+# library -> its sources; each library exports <library>_error_string
+LIBRARIES = {"hrt1": ("hrt1_decode.cu", "hrt1_resolve.cu", "hrt1_encode.cu",
+                      "mmtf.cu"),
+             "micro_word": ("micro_word.cu",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
-KERNELS = ("hrt1_decode", "hrt1_resolve_deep", "hrt1_encode",
-           "word_slice_sum", "word_sampled_prefix", "mmtf_scan")
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+# entry point -> (library, argtypes); each returns a cudaError_t as int
+_ENTRY = {
+    "hrt1_decode": ("hrt1", [_P] * 8 + [_I64, _I32, _I32, _I32, _I32, _P]),
+    "hrt1_resolve_deep": ("hrt1", [_P] * 11 + [_I64, _I32, _I32, _I32, _I32,
+                                               _P]),
+    "hrt1_encode": ("hrt1", [_P] * 10 + [_I64, _I32, _I32, _I32, _I32, _P]),
+    "mmtf_scan": ("hrt1", [_P, _P, _P, _I64, _I64, _I32, _I32, _P]),
+    "word_slice_sum": ("micro_word", [_P, _P, _I64, _I32, _P]),
+    "word_sampled_prefix": ("micro_word", [_P, _P, _I64, _P]),
+}
 
-_launches = dict.fromkeys(KERNELS, 0)
+_launches = dict.fromkeys(_ENTRY, 0)
 
 
 def count_launch(name: str) -> None:
@@ -58,11 +71,11 @@ def _nvcc() -> str:
                        "kernels are built from csrc/*.cu at first use")
 
 
-def library_path() -> pathlib.Path:
+def library_path(name: str = "hrt1") -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in SOURCES:
+    for s in LIBRARIES[name]:
         h.update((_CSRC / s).read_bytes())
-    return _BUILD / f"libhrt1_{h.hexdigest()[:16]}.so"
+    return _BUILD / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _run(cmds: list[list[str]]) -> None:
@@ -84,58 +97,52 @@ def _run(cmds: list[list[str]]) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(bad))
 
 
-def build() -> None:
-    """Compile the sources into :func:`library_path`; raises with nvcc's
+def build(*names: str) -> None:
+    """Compile the named libraries (all by default) into
+    :func:`library_path`, every source at once; raises with nvcc's
     diagnostics on a failed build."""
-    so = library_path()
-    so.parent.mkdir(parents=True, exist_ok=True)
-    tag = f"{so.stem}.{os.getpid()}"
-    objs = [so.with_name(f"{tag}.{s}.o") for s in SOURCES]
-    tmp = so.with_name(f"{tag}.so.tmp")
+    names = names or tuple(LIBRARIES)
     nvcc = _nvcc()
+    sos = {n: library_path(n) for n in names}
+    tmps = {n: so.with_name(f"{so.stem}.{os.getpid()}.so.tmp")
+            for n, so in sos.items()}
+    objs = {n: [so.with_name(f"{so.stem}.{os.getpid()}.{s}.o")
+                for s in LIBRARIES[n]] for n, so in sos.items()}
+    _BUILD.mkdir(parents=True, exist_ok=True)
     try:
         _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / s)]
-              for s, o in zip(SOURCES, objs)])
-        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-               *map(str, objs)]])
-        os.replace(tmp, so)      # atomic: concurrent builds race safely
+              for n in names for s, o in zip(LIBRARIES[n], objs[n])])
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmps[n]),
+               *map(str, objs[n])] for n in names])
+        for n in names:       # atomic: concurrent builds race safely
+            os.replace(tmps[n], sos[n])
     finally:
-        for o in (*objs, tmp):
-            o.unlink(missing_ok=True)
+        for n in names:
+            for f in (*objs[n], tmps[n]):
+                f.unlink(missing_ok=True)
 
 
 @functools.cache
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    so = library_path()
+def lib(name: str = "hrt1") -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed."""
+    so = library_path(name)
     if not so.exists():
-        build()
+        build(name)
     L = ctypes.CDLL(str(so))
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-    L.hrt1_decode.argtypes = [p, p, p, p, p, p, p, p,
-                              i64, i32, i32, i32, i32, p]
-    L.hrt1_decode.restype = ctypes.c_int
-    L.hrt1_resolve_deep.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
-                                    i64, i32, i32, i32, i32, p]
-    L.hrt1_resolve_deep.restype = ctypes.c_int
-    L.hrt1_encode.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                              i64, i32, i32, i32, i32, p]
-    L.hrt1_encode.restype = ctypes.c_int
-    L.word_slice_sum.argtypes = [p, p, i64, i32, i32, p]
-    L.word_slice_sum.restype = ctypes.c_int
-    L.word_sampled_prefix.argtypes = [p, p, i64, i32, p]
-    L.word_sampled_prefix.restype = ctypes.c_int
-    L.mmtf_scan.argtypes = [p, p, p, i64, i64, i32, i32, p]
-    L.mmtf_scan.restype = ctypes.c_int
-    L.hrt1_error_string.argtypes = [ctypes.c_int]
-    L.hrt1_error_string.restype = ctypes.c_char_p
+    for entry, (owner, argtypes) in _ENTRY.items():
+        if owner == name:
+            fn = getattr(L, entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    err = getattr(L, f"{name}_error_string")
+    err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
     return L
 
 
 def check(rc: int, name: str) -> None:
-    """Raise if a launch reported a CUDA error."""
+    """Raise if a launch of kernel ``name`` reported a CUDA error."""
     if rc != 0:
-        msg = lib().hrt1_error_string(rc).decode()
+        owner = _ENTRY[name][0]
+        msg = getattr(lib(owner), f"{owner}_error_string")(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
 
 

@@ -146,11 +146,16 @@ def decode_columns_device(sym, count, lit_len, lits, n_cmds, n_lits,
     return ob if 4 * W == B else ob[:, :B].contiguous()
 
 
+def columns_to_device(cols, device) -> list[torch.Tensor]:
+    """Numpy planar columns -> tensors on ``device``, each column through a
+    pinned buffer."""
+    dev = torch.device(device)
+    return [to_device(np.ascontiguousarray(c), dev) for c in cols]
+
+
 def decode_host_columns(cols, *, block_size: int, device) -> torch.Tensor:
     """Numpy planar columns ``(sym, count, lit_len, lits, n_cmds, n_lits,
-    block_len)`` -> decoded ``[nb, block_size]`` uint8 on ``device``: each
-    column crosses through a pinned buffer, then
-    :func:`decode_columns_device` decodes them."""
-    dev = torch.device(device)
-    t = [to_device(np.ascontiguousarray(c), dev) for c in cols]
-    return decode_columns_device(*t, block_size=block_size)
+    block_len)`` -> decoded ``[nb, block_size]`` uint8 on ``device``:
+    :func:`columns_to_device`, then :func:`decode_columns_device`."""
+    return decode_columns_device(*columns_to_device(cols, device),
+                                 block_size=block_size)

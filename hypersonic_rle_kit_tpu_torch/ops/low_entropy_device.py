@@ -108,28 +108,42 @@ def _header(buf: memoryview, p: int):
 
 
 def walk_le(buf) -> tuple:
-    """Host half of :func:`le_decompress_device`: ``(cols, B, usize)``,
-    cols None for an empty stream."""
+    """Host half of :func:`le_decompress_device`: ``(cols, B, sizes)`` as
+    :func:`walk_rle8m` gives them, one block; cols None and sizes empty for
+    an empty stream."""
     buf = memoryview(bytes(buf))
     _csize, usize = struct.unpack_from("<II", buf, 0)
     if usize == 0:
-        return None, 0, 0
+        return None, 0, []
     rle, stc, p = _header(buf, 8)
     part = _parse_section_to_planar(buf, p, usize, rle, stc)
     cols, B = _stack_planar([part], [usize])
-    return cols, B, usize
+    return cols, B, [usize]
+
+
+def join(y: torch.Tensor, sizes) -> torch.Tensor:
+    """Decoded ``[nb, B]`` blocks -> the output bytes on ``y``'s device:
+    every block but the last holds ``sizes[0]`` bytes, the last
+    ``sizes[-1]``."""
+    if len(sizes) == 1:
+        return y[0, :sizes[0]]
+    return torch.cat([y[:-1, :sizes[0]].reshape(-1), y[-1, :sizes[-1]]])
+
+
+def _decode(walked, device) -> bytes:
+    cols, B, sizes = walked
+    if not sizes:
+        return b""
+    y = decode_sup.decode_host_columns(cols, block_size=B, device=device)
+    (out,) = to_host(join(y, sizes))
+    return out.tobytes()
 
 
 def le_decompress_device(buf, *, device) -> bytes:
     """Decode a Low Entropy (+Short: same grammar) stream on ``device``
     ('cuda', 'cuda:N' or 'cpu'; CUDA runs the hrt1_decode kernel, CPU its
     plain version)."""
-    cols, B, usize = walk_le(buf)
-    if usize == 0:
-        return b""
-    y = decode_sup.decode_host_columns(cols, block_size=B, device=device)
-    (out,) = to_host(y[0, :usize])
-    return out.tobytes()
+    return _decode(walk_le(buf), device)
 
 
 def walk_rle8m(buf) -> tuple:
@@ -170,11 +184,4 @@ def rle8m_decompress_device(buf, *, device) -> bytes:
     subsection: the analog of ``rle8m_opencl_decompress``
     (rle8_ocl.c:265-413) with the NDRange replaced by the block axis.  The
     subsections are joined on the device and come back in one copy."""
-    cols, B, sizes = walk_rle8m(buf)
-    if not sizes:
-        return b""
-    y = decode_sup.decode_host_columns(cols, block_size=B, device=device)
-    # every subsection but the last has sizes[0] bytes
-    out = torch.cat([y[:-1, :sizes[0]].reshape(-1), y[-1, :sizes[-1]]])
-    (host,) = to_host(out)
-    return host.tobytes()
+    return _decode(walk_rle8m(buf), device)

@@ -31,17 +31,25 @@ _I32 = torch.int32
 
 
 def _check(x, *, sampled: bool) -> None:
+    """The wrappers' contract, the same on every device: a contiguous bf16
+    ``[nb, R, row]`` plane, ``R % 4 == 0``, ``row % 4 == 0`` (``row ==
+    128`` for the sampled prefix) and a 16-byte-aligned data pointer, as
+    every plane the microbenchmark allocates is.  The plain versions take
+    any shape."""
     if not isinstance(x, torch.Tensor) or x.dim() != 3:
         raise ValueError(f"want a [nb, R, row] tensor, got {type(x)}")
     if x.dtype != _BF16:
         raise TypeError(f"x: dtype {x.dtype}, want {_BF16}")
     nb, R, row = x.shape
-    if R % 4 or row < 1:
-        raise ValueError(f"want R % 4 == 0 and row >= 1, got {tuple(x.shape)}")
+    if R % 4 or row < 4 or row % 4:
+        raise ValueError(f"want R % 4 == 0 and row % 4 == 0, got "
+                         f"{tuple(x.shape)}")
     if sampled and row != ROW:
         raise ValueError(f"the sampled prefix wants rows of {ROW}, got {row}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary")
 
 
 def _slices(x: torch.Tensor) -> list[torch.Tensor]:
@@ -138,7 +146,7 @@ def _launch(name: str, x: torch.Tensor, *args) -> torch.Tensor:
     out = torch.empty((nb, R // 4, row), dtype=_I32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(_kernels.lib(), name)(
+        rc = getattr(_kernels.lib("micro_word"), name)(
             _kernels.ptr(x), _kernels.ptr(out), nb * R // 4, *args, stream)
     _kernels.check(rc, name)
     _kernels.count_launch(name)
@@ -158,9 +166,7 @@ def word_slice_sum(x: torch.Tensor) -> torch.Tensor:
     _check(x, sampled=False)
     if _device_type(x, "word_slice_sum") == "cpu":
         return slice_sum_f32(x)
-    row = x.shape[2]
-    vec = int(row % 4 == 0 and x.data_ptr() % 8 == 0)
-    return _launch("word_slice_sum", x, row, vec)
+    return _launch("word_slice_sum", x, x.shape[2])
 
 
 def word_sampled_prefix(x: torch.Tensor) -> torch.Tensor:
@@ -170,4 +176,4 @@ def word_sampled_prefix(x: torch.Tensor) -> torch.Tensor:
     _check(x, sampled=True)
     if _device_type(x, "word_sampled_prefix") == "cpu":
         return sampled_prefix_big1(x)
-    return _launch("word_sampled_prefix", x, int(x.data_ptr() % 16 == 0))
+    return _launch("word_sampled_prefix", x)

@@ -75,6 +75,11 @@ def interleave(y: torch.Tensor, *, s: int, m: int) -> torch.Tensor:
     return y.reshape(s, -1)[:, :m].t().contiguous().reshape(-1)
 
 
+def finish(y: torch.Tensor, usize: int, s: int) -> torch.Tensor:
+    """Decoded blocks -> the ``usize`` output bytes on ``y``'s device."""
+    return interleave(y, s=s, m=-(-usize // s))[:usize]
+
+
 def decompress_ref_device(buf, codec, *, block_size: int = DEFAULT_BLOCK,
                           device) -> bytes:
     """Decode a reference-format stream on ``device`` ('cuda', 'cuda:N' or
@@ -88,5 +93,5 @@ def decompress_ref_device(buf, codec, *, block_size: int = DEFAULT_BLOCK,
     if usize == 0:
         return b""
     y = decode_sup.decode_host_columns(cols, block_size=B, device=device)
-    (out,) = to_host(interleave(y, s=s, m=-(-usize // s))[:usize])
+    (out,) = to_host(finish(y, usize, s))
     return out.tobytes()

@@ -224,7 +224,7 @@ def test_kernel_rejects_bad_input(dev):
     cols[1] = cols[1].to(torch.int64)
     with pytest.raises(TypeError):
         decode_sup.decode_columns_device(*cols, block_size=4096)
-    assert _kernels.lib() is not None
+    assert all(_kernels.lib(n) is not None for n in _kernels.LIBRARIES)
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +298,7 @@ def test_compress_kernel_matches_native(dev, codec):
 
 def _plane(shape, seed, dev, offset=0):
     """bf16 plane of integers in -4..4; ``offset`` elements into a larger
-    buffer, so the data pointer can be misaligned."""
+    buffer, so the data pointer can sit off a 16-byte boundary."""
     rng = np.random.default_rng(seed)
     n = int(np.prod(shape))
     flat = torch.from_numpy(rng.integers(-4, 5, n + offset).astype(
@@ -307,8 +307,8 @@ def _plane(shape, seed, dev, offset=0):
 
 
 @pytest.mark.parametrize("shape,offset", [((4, 64, 128), 0),
-                                          ((3, 20, 128), 1),
-                                          ((5, 8, 128), 4),
+                                          ((3, 20, 128), 0),
+                                          ((5, 8, 128), 8),
                                           ((256, 2048, 128), 0)])
 def test_word_kernels_match_plain(dev, shape, offset):
     x = _plane(shape, sum(shape), dev, offset)
@@ -319,10 +319,17 @@ def test_word_kernels_match_plain(dev, shape, offset):
         assert torch.equal(ss if "slice" in name else sp, want), name
 
 
-@pytest.mark.parametrize("shape,offset", [((3, 12, 5), 0), ((1, 4, 1), 0),
-                                          ((2, 8, 130), 1), ((7, 4, 64), 2)])
-def test_word_slice_sum_odd_shapes(dev, shape, offset):
+@pytest.mark.parametrize("shape,offset,ok", [
+    ((3, 12, 8), 0, True), ((7, 4, 64), 8, True), ((3, 12, 5), 0, False),
+    ((1, 4, 1), 0, False), ((2, 8, 128), 1, False), ((7, 4, 64), 4, False)])
+def test_word_slice_sum_odd_shapes(dev, shape, offset, ok):
+    """Rows of whole 4-element groups on a 16-byte boundary launch the
+    kernel; anything else is refused before a launch."""
     x = _plane(shape, 3, dev, offset)
+    if not ok:
+        with pytest.raises(ValueError):
+            micro_word.word_slice_sum(x)
+        return
     k = micro_word.word_slice_sum(x)
     assert torch.equal(k, micro_word.slice_sum_f32(x))
     assert torch.equal(k, micro_word.slice_sum_i32(x))

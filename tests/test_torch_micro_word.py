@@ -97,15 +97,23 @@ def test_formulas():
         assert torch.equal(fn(xt), want), name
 
 
-@pytest.mark.parametrize("shape", [(3, 8, 5), (1, 4, 1), (2, 12, 129)])
+@pytest.mark.parametrize("shape", [(3, 8, 5), (1, 4, 1), (2, 12, 129),
+                                   (2, 12, 8)])
 def test_slice_sum_odd_shapes(shape):
+    """The plain versions take any shape; the wrapper only rows of whole
+    4-element groups, as its kernel does."""
     rng = np.random.default_rng(sum(shape))
     x = rng.integers(-4, 5, shape).astype(np.float32)
     xt = torch.from_numpy(x).to(torch.bfloat16)
     nb, r, row = shape
     want = x.reshape(nb, r // 4, 4, row).sum(2).astype(np.int32)
-    np.testing.assert_array_equal(mw.word_slice_sum(xt).numpy(), want)
+    np.testing.assert_array_equal(mw.slice_sum_f32(xt).numpy(), want)
     np.testing.assert_array_equal(mw.slice_sum_i32(xt).numpy(), want)
+    if row % 4:
+        with pytest.raises(ValueError):
+            mw.word_slice_sum(xt)
+    else:
+        np.testing.assert_array_equal(mw.word_slice_sum(xt).numpy(), want)
 
 
 def test_wrappers_reject_bad_input():
@@ -121,3 +129,11 @@ def test_wrappers_reject_bad_input():
                                .transpose(0, 1))
     with pytest.raises(ValueError):
         mw.word_slice_sum(x.to("meta"))
+    flat = torch.zeros(2 * 8 * ROW + 8, dtype=torch.bfloat16)
+    for off in (1, 4):                    # 2 and 8 bytes past a boundary
+        with pytest.raises(ValueError):
+            mw.word_sampled_prefix(flat[off:off + 2 * 8 * ROW]
+                                   .view(2, 8, ROW))
+    np.testing.assert_array_equal(           # 16 bytes: admitted
+        mw.word_sampled_prefix(flat[8:8 + 2 * 8 * ROW].view(2, 8, ROW)),
+        np.zeros((2, 2, ROW), np.int32))
