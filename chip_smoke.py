@@ -48,6 +48,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    counted) equal to formats.mmtf and round-tripping, and its four scans
    equal to the plain version at their shapes; Bit-MMTF 8 / 16 on
    16 MiB; mmtf_scan timed on 1 MiB beside its plain version.
+10. distribution: (a) two gloo ranks, fresh interpreters sharing the card,
+    run parallel/dist.compress_distributed on the 64 MiB DCT corpus
+    (256 KiB blocks), whose bytes must equal the native container, and
+    pipeline_step on the same blocks, which must return them; each rank
+    must have launched hrt1_encode and hrt1_decode, and then holds both
+    against their plain versions on its blocks.  (b) one NCCL rank in
+    this process (world size 1) compresses 16 MiB the same way, so the
+    exchange runs on CUDA tensors once.  Logs the two-rank wall beside the
+    single-process compress wall.
+11. device fuzz lane: fuzz.run_device on the card over 20 inputs (10
+    random, 10 iterative) x the 10 DEVICE_FUZZ_CODECS: round trips, 4
+    mutated and 3 truncated containers each; no failure, and hrt1_decode
+    and hrt1_resolve_deep must have launched.
 
 The line before the last is one JSON object with each kernel's route,
 source, replaced TPU kernel, launches, max |error| and times; the last line
@@ -56,25 +69,30 @@ is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import itertools
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import bench
+from hypersonic_rle_kit_tpu import spec
 from hypersonic_rle_kit_tpu.formats import low_entropy, mmtf, registry
 from hypersonic_rle_kit_tpu.parallel import container
 from hypersonic_rle_kit_tpu.utils import native
-from hypersonic_rle_kit_tpu_torch import api
+from hypersonic_rle_kit_tpu_torch import api, fuzz, graft_entry
 from hypersonic_rle_kit_tpu_torch.ops import (_kernels, decode_sup, device,
                                               encode_sup, low_entropy_device,
                                               micro_word, mmtf_device, planar,
                                               ref_device, transfer,
                                               unpack_device)
+from hypersonic_rle_kit_tpu_torch.parallel import dist
 
 MIB = 1 << 20
 KERNELS = {
@@ -596,6 +614,178 @@ def mmtf_phase(dev, card: str):
     return launches, err, (t, plain_ms[16, True])
 
 
+# ---------------------------------------------------------------------------
+# phases 10-11: distribution, device fuzz lane
+# ---------------------------------------------------------------------------
+
+# one gloo rank of phase 10a: argv WORKDIR WORLD RANK; the stream is
+# WORKDIR/data.bin; the ranks share card 0
+DIST_RANK = r"""
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as tdist
+from hypersonic_rle_kit_tpu_torch import api
+from hypersonic_rle_kit_tpu_torch.ops import (decode_sup, device, encode_sup,
+                                              planar, transfer)
+from hypersonic_rle_kit_tpu_torch.parallel import dist
+
+def err(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape)
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+workdir, world, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+if not torch.cuda.is_available():
+    raise SystemExit("rank: torch.cuda.is_available() is false")
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+dist.initialize_multihost(tdist.FileStore(f"{workdir}/store", world), world,
+                          rank, backend="gloo", timeout=300)
+mesh = dist.make_mesh()
+data = np.fromfile(f"{workdir}/data.bin", np.uint8)
+B = 1 << 18
+api.reset_kernel_launch_counts()
+walls = []
+for _ in range(3):                       # the first call warms up
+    tdist.barrier()
+    t0 = time.perf_counter()
+    blob = dist.compress_distributed(data, mesh, block_size=B, device=dev)
+    walls.append(time.perf_counter() - t0)
+x, lens = api._to_blocks(data, B)
+mine = slice(rank * x.shape[0] // world, (rank + 1) * x.shape[0] // world)
+xd, tl = transfer.to_device(x[mine], dev), transfer.to_device(lens[mine], dev)
+cap = planar.capacity_for(B, 6)
+y, offsets, sizes = dist.pipeline_step(xd, tl, capacity=cap, min_count=6,
+                                       mesh=mesh)
+roundtrip = torch.equal(y, xd)
+torch.cuda.synchronize()
+launches = api.kernel_launch_counts()
+# both kernels against their plain versions at this rank's shapes (these
+# launches come after the count is read)
+ek = encode_sup.encode_blocks_kernel(xd, tl, capacity=cap, min_count=6)
+pb = device.encode_blocks(xd, tl, capacity=cap, min_count=6)
+errs = {"hrt1_encode": max(err(a, b) for a, b in zip(ek, (
+    pb.sym, pb.count, pb.lit_len, pb.lits, pb.n_cmds, pb.n_lits))),
+        "hrt1_decode": err(
+    decode_sup.decode_columns_device(*ek, tl, block_size=B),
+    decode_sup.decode_columns_plain(*ek, tl, block_size=B))}
+torch.cuda.synchronize()
+if rank == 0:
+    with open(f"{workdir}/blob.bin", "wb") as f:
+        f.write(blob)
+with open(f"{workdir}/rank{rank}.json", "w") as f:
+    json.dump(dict(walls=walls, roundtrip=roundtrip, launches=launches,
+                   errs=errs, sizes=sizes.tolist(),
+                   offsets=offsets.tolist(), shape=list(xd.shape)), f)
+tdist.destroy_process_group()
+"""
+
+
+def dist_phase(dct: bytes, native_blob: bytes, dev, card: str,
+               single_wall: float) -> dict:
+    """(a) two gloo ranks on the card: compress_distributed == native,
+    pipeline_step round trip, both kernels launched on each rank and equal
+    to their plain versions at its shapes; (b) one NCCL rank in this
+    process: the exchange on CUDA tensors.  Returns the max |error| of
+    hrt1_encode and hrt1_decode over the ranks."""
+    B = 1 << 18
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as wd:
+        np.frombuffer(dct, np.uint8).tofile(f"{wd}/data.bin")
+        t0 = time.perf_counter()
+        graft_entry.run_ranks([sys.executable, "-c", DIST_RANK], 2, wd,
+                              timeout=300)
+        ranks_s = time.perf_counter() - t0
+        res = [json.loads(pathlib.Path(f"{wd}/rank{r}.json").read_text())
+               for r in range(2)]
+        blob = pathlib.Path(f"{wd}/blob.bin").read_bytes()
+    if blob != native_blob:
+        raise AssertionError("2-rank compress_distributed != native")
+    for r, x in enumerate(res):
+        if not x["roundtrip"]:
+            raise AssertionError(f"rank {r}: pipeline_step != its blocks")
+        for k in ("hrt1_encode", "hrt1_decode"):
+            if x["launches"][k] < 1:
+                raise AssertionError(f"rank {r} never launched {k}")
+            if x["errs"][k]:
+                raise AssertionError(f"rank {r}: {k} != plain on "
+                                     f"{x['shape']}: err={x['errs'][k]}")
+    sizes = np.array(res[0]["sizes"] + res[1]["sizes"], np.int64)
+    if res[0]["offsets"] + res[1]["offsets"] != (np.cumsum(sizes)
+                                                 - sizes).tolist():
+        raise AssertionError("offsets != exclusive prefix of the sizes")
+    # a timed call's wall is its slowest rank's; best of the two after the
+    # warm-up
+    wall = min(max(w) for w in zip(*(x["walls"][1:] for x in res)))
+    log(f"distribution (a): 2 gloo ranks sharing one card, 64 MiB DCT in "
+        f"256 KiB blocks: compress_distributed == native, pipeline_step "
+        f"round trip equal, offsets == exclusive prefix, hrt1_encode and "
+        f"hrt1_decode == plain on each rank's {res[0]['shape']} blocks; "
+        f"launches rank 0 "
+        f"{res[0]['launches']}, rank 1 {res[1]['launches']}; ranks ran "
+        f"{ranks_s:.1f} s")
+    log(f"[{card}] compress wall (64 MiB DCT, 8 Bit): 2 gloo ranks on one "
+        f"card {wall * 1e3:.1f} ms (best of 2 after a warm-up, slowest "
+        f"rank) vs single-process api.compress(backend='kernel') "
+        f"{single_wall * 1e3:.1f} ms")
+
+    raw = dct[:16 * MIB]
+    want = api.compress(raw, "8 Bit", backend="native")
+    on_wire = []
+    all_gather = torch.distributed.all_gather
+
+    def spy(out, t, *a, **k):
+        on_wire.append(t.device.type)
+        return all_gather(out, t, *a, **k)
+
+    api.reset_kernel_launch_counts()
+    with tempfile.TemporaryDirectory() as wd:
+        dist.initialize_multihost(
+            torch.distributed.FileStore(f"{wd}/store", 1), 1, 0,
+            backend="nccl")
+        torch.distributed.all_gather = spy
+        try:
+            got = dist.compress_distributed(raw, dist.make_mesh(), device=dev,
+                                            block_size=B)
+        finally:
+            torch.distributed.all_gather = all_gather
+            torch.distributed.destroy_process_group()
+    if got != want:
+        raise AssertionError("NCCL compress_distributed != native")
+    if not on_wire or set(on_wire) != {"cuda"}:
+        raise AssertionError(f"NCCL exchange tensors on {on_wire}")
+    encodes = api.kernel_launch_counts()["hrt1_encode"]
+    if encodes < 1:
+        raise AssertionError("the NCCL rank never launched hrt1_encode")
+    log(f"distribution (b): 1 NCCL rank, 16 MiB: compress_distributed == "
+        f"native; {len(on_wire)} all_gathers on CUDA tensors; hrt1_encode "
+        f"launched {encodes}")
+    return {k: max(x["errs"][k] for x in res)
+            for k in ("hrt1_encode", "hrt1_decode")}
+
+
+def fuzz_phase(dev, card: str) -> None:
+    """The device fuzz lane on the card."""
+    inputs = list(itertools.chain(fuzz.random_inputs(6, 10), itertools.islice(
+        fuzz.iterative_inputs(6), 10)))
+    specs = [spec.by_name(n) for n in fuzz.DEVICE_FUZZ_CODECS]
+    api.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    failures = fuzz.run_device(inputs, specs, log=log, device=dev)
+    torch.cuda.synchronize()            # raises on a sticky CUDA error
+    secs = time.perf_counter() - t0
+    launches = api.kernel_launch_counts()
+    if failures:
+        raise AssertionError("device fuzz lane failed")
+    for k in ("hrt1_decode", "hrt1_resolve_deep"):
+        if launches[k] < 1:
+            raise AssertionError(f"device fuzz lane never launched {k}")
+    log(f"[{card}] device fuzz lane: {len(inputs)} inputs x {len(specs)} "
+        f"codecs ({len(inputs) * len(specs)} containers, each with 4 "
+        f"mutations and 3 truncations) clean in {secs:.1f} s; launches "
+        f"{launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -786,6 +976,12 @@ def main() -> int:
     for k in KERNELS:
         if launches[k] < 1:
             raise AssertionError(f"{k} never launched on its main path")
+
+    # ---- 10-11. distribution, device fuzz lane ----
+    for k, e in dist_phase(dct, native_blobs["dct64"], dev, card,
+                           wk).items():
+        errs[k] = max(errs[k], e)
+    fuzz_phase(dev, card)
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

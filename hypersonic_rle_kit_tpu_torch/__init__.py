@@ -10,6 +10,12 @@ formats, HRT1 container, native host runtime) are shared, not copied:
   decode paths, the reference-format and Low Entropy decoders, MMTF and
   the word microbenchmark.
 - :mod:`~hypersonic_rle_kit_tpu_torch.api` -- ``compress`` / ``decompress``.
+- :mod:`~hypersonic_rle_kit_tpu_torch.parallel` -- the block axis over
+  ``torch.distributed`` ranks (size exchange, ordered reassembly).
+- :mod:`~hypersonic_rle_kit_tpu_torch.graft_entry`,
+  :mod:`~hypersonic_rle_kit_tpu_torch.fuzz`,
+  :mod:`~hypersonic_rle_kit_tpu_torch.bench_cli` -- the decode step and the
+  multi-rank dry run, the device fuzz lane, the benchmark CLI.
 
 Importing the package touches no CUDA state and imports no JAX.
 """

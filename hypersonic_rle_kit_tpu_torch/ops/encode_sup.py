@@ -94,7 +94,9 @@ def encode_blocks_kernel(x: torch.Tensor, block_len: torch.Tensor, *,
             raise ValueError(f"block_len outside [0, {B}]")
         pb = encode_blocks(x, block_len, capacity=capacity,
                            min_count=min_count, only_sym=only_sym)
-        return pb.sym, pb.count, pb.lit_len, pb.lits, pb.n_cmds, pb.n_lits
+        # contiguous like the kernel's outputs, so they feed hrt1_decode
+        return tuple(c.contiguous() for c in (pb.sym, pb.count, pb.lit_len,
+                                              pb.lits, pb.n_cmds, pb.n_lits))
     if dev.type != "cuda":
         raise ValueError(f"hrt1_encode runs on CUDA or CPU tensors, not {dev}")
     cols = _launch(x, block_len, only_sym, capacity, min_count)

@@ -256,17 +256,28 @@ def test_port_imports_no_jax():
         "import hypersonic_rle_kit_tpu_torch.ops.mmtf_device\n"
         "import hypersonic_rle_kit_tpu_torch.ops.bitpack\n"
         "import hypersonic_rle_kit_tpu_torch.ops.micro_word\n"
+        "import hypersonic_rle_kit_tpu_torch.parallel.dist\n"
+        "import hypersonic_rle_kit_tpu_torch.graft_entry\n"
+        "import hypersonic_rle_kit_tpu_torch.fuzz\n"
+        "import hypersonic_rle_kit_tpu_torch.bench_cli\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
         "import micro_word_torch\n"
         "assert 'jax' not in sys.modules\n"
-        "# the shared grammar walkers: the one JAX-package ops module the\n"
-        "# port may load (it imports jax only inside its own decoder)\n"
+        "# the JAX-package modules the port shares: the grammar walkers (jax\n"
+        "# only inside their own decoder), the fuzz inputs and the bench\n"
+        "# CLI's row helpers; each must stay jax-free at import\n"
         "shared = {'hypersonic_rle_kit_tpu.ops',\n"
-        "          'hypersonic_rle_kit_tpu.ops.ref_device'}\n"
+        "          'hypersonic_rle_kit_tpu.ops.ref_device',\n"
+        "          'hypersonic_rle_kit_tpu.fuzz',\n"
+        "          'hypersonic_rle_kit_tpu.bench_cli'}\n"
+        "assert shared <= set(sys.modules), shared - set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m not in shared and (\n"
         "    m == 'jax' or m.startswith(('jax.', 'hypersonic_rle_kit_tpu.ops',\n"
-        "                                'hypersonic_rle_kit_tpu.api'))))\n"
+        "                                'hypersonic_rle_kit_tpu.api',\n"
+        "                                'hypersonic_rle_kit_tpu.parallel.dist',\n"
+        "                                'hypersonic_rle_kit_tpu.fuzz',\n"
+        "                                'hypersonic_rle_kit_tpu.bench_cli'))))\n"
         "assert not bad, bad\n"
         "assert not __import__('torch').cuda.is_initialized()\n")
     root = __file__.rsplit("/", 2)[0]

@@ -386,6 +386,28 @@ def test_ref_stream_on_card(dev, codec):
     assert n == {**dict.fromkeys(n, 0), "hrt1_decode": 2}
 
 
+def test_graft_entry_on_card_matches_cpu(dev):
+    from hypersonic_rle_kit_tpu_torch import graft_entry
+    fn, args = graft_entry.entry("cuda")
+    cfn, cargs = graft_entry.entry("cpu")
+    assert torch.equal(fn(*args).cpu(), cfn(*cargs))
+
+
+def test_device_fuzz_lane_on_card(dev, tmp_path, monkeypatch):
+    from hypersonic_rle_kit_tpu import spec
+    from hypersonic_rle_kit_tpu_torch import fuzz
+    monkeypatch.chdir(tmp_path)
+    api.reset_kernel_launch_counts()
+    logs = []
+    failures = fuzz.run_device(
+        fuzz.random_inputs(6, 2),
+        [spec.by_name(n) for n in fuzz.DEVICE_FUZZ_CODECS], log=logs.append,
+        device=dev)
+    torch.cuda.synchronize()
+    assert failures == 0, logs
+    assert api.kernel_launch_counts()["hrt1_decode"] > 0
+
+
 @pytest.mark.parametrize("subs", [1, 3, 32])
 def test_low_entropy_on_card(dev, subs):
     from hypersonic_rle_kit_tpu.formats import low_entropy as le
