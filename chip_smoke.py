@@ -12,11 +12,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    and the word microbenchmark's.
 3. kernels vs plain: hrt1_decode on synthetic columns (dense, sparse,
    all-literal, whole-block run, ragged tail, zero-count commands mid-stream,
-   min_count 1; 4 KiB, 64 KiB and 256 KiB blocks), hrt1_resolve_deep on
-   the deep sections of a real container, and hrt1_encode on synthetic
-   blocks (dense, sparse DCT, all-literal, whole-block run, ragged tail,
-   Single, min_count 1 and 4; 4 KiB, 64 KiB, 192 KiB and 256 KiB blocks),
-   each byte-equal to its plain torch version on the same card tensors.
+   min_count 1, runs across every 16 KiB tile edge with block_len ending
+   mid-tile; 4 KiB, 20011 B, 20012 B, 64 KiB and 256 KiB blocks: B % 16 !=
+   0 and W % 4 != 0 take the unvectorised paths), hrt1_resolve_deep on the
+   deep sections of a real container, and hrt1_encode on synthetic blocks
+   (the same edges plus Single, min_count 4; 4 KiB, 20011 B, 64 KiB,
+   192 KiB and 256 KiB blocks); a 4 MiB one-block stream through both; a
+   capacity of exactly the commands (padding by the tail tile), one less
+   raising.  Each byte-equal to its plain torch version on the same card
+   tensors.
 4. main paths.  Compress: api.compress(backend="kernel", device="cuda") on
    the 64 MiB DCT corpus ("8 Bit" and "8 Bit Single"), the random and bwt
    rows, "32 Bit (Symbol)" and "24 Bit (Symbol)" on 16 MiB + 1001 bytes
@@ -25,15 +29,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    blobs and of the 64 MiB corpus's flat layout must equal the input, and
    both decode kernels' launch counters must move.  Each path's counters
    are set to 0 just before it and read just after.
-5. times: CUDA-event medians of each kernel and of dispatch_packed on
-   shipped sections (deep and flat) beside the plain versions on the same
-   card; the wall time of one whole decompress (64 MiB DCT, and the 32-bit
-   width row with the device re-interleave); the compress wall of the
-   64 MiB DCT corpus split into its stages.
+5. times: the device time of one call of each kernel (CUDA-graph
+   replays, no host work) and its bound, beside CUDA-event medians of its
+   plain version, of the wrappers and of dispatch_packed on shipped
+   sections (deep and flat);
+   the wall time of one whole decompress (64 MiB DCT, and the 32-bit width
+   row with the device re-interleave); the compress wall of the 64 MiB DCT
+   corpus split into its stages.
 6. K4: word_slice_sum and word_sampled_prefix on the word microbenchmark's
    [256, 2048, 128] bf16 plane (their main path, counted), each equal to
    every plain formulation of its function (the five Pallas bodies of
-   scripts/micro_word.py), and all seven timed.
+   scripts/micro_word.py), and all seven timed beside one PyTorch call of
+   each function (torch.sum over the row groups; torch.matmul with the
+   taps [4, 3, 2, 1]).
 7. reference streams: decompress_ref_device on the card of "8 Bit" on
    32 MiB of the DCT corpus and of one codec per family and width on
    16 MiB + 13 B, each equal to its input and decoded by hrt1_decode
@@ -63,8 +71,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     and hrt1_resolve_deep must have launched.
 
 The line before the last is one JSON object with each kernel's route,
-source, replaced TPU kernel, launches, max |error| and times; the last line
-is {"ok": true, "device": {...}}.
+source, replaced TPU kernel, launches, max |error|, times (the kernel's
+device time; CUDA-event times of its plain version and of one PyTorch call
+where there is one), and its bound from
+this run's inputs (bytes each read or written once at 3.35 TB/s, or
+operations at 67 TFLOP/s, the larger); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -81,20 +93,21 @@ import time
 import numpy as np
 import torch
 
-import bench
-from hypersonic_rle_kit_tpu import spec
-from hypersonic_rle_kit_tpu.formats import low_entropy, mmtf, registry
-from hypersonic_rle_kit_tpu.parallel import container
-from hypersonic_rle_kit_tpu.utils import native
-from hypersonic_rle_kit_tpu_torch import api, fuzz, graft_entry
+from hypersonic_rle_kit_tpu_torch import (api, datasets, fuzz, graft_entry,
+                                          spec)
+from hypersonic_rle_kit_tpu_torch.formats import low_entropy, mmtf, registry
 from hypersonic_rle_kit_tpu_torch.ops import (_kernels, decode_sup, device,
                                               encode_sup, low_entropy_device,
                                               micro_word, mmtf_device, planar,
                                               ref_device, transfer,
                                               unpack_device)
-from hypersonic_rle_kit_tpu_torch.parallel import dist
+from hypersonic_rle_kit_tpu_torch.parallel import container, dist
+from hypersonic_rle_kit_tpu_torch.utils import native
 
 MIB = 1 << 20
+TILE = 16384            # the encode and decode kernels' tile bytes
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
+FP32_OPS_PER_S = 67e12
 KERNELS = {
     "hrt1_decode": dict(
         route="cuda", source="hypersonic_rle_kit_tpu_torch/csrc/hrt1_decode.cu",
@@ -159,6 +172,52 @@ def cuda_ms(fns: dict, reps: int = 11, calls: int = 10) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+def graph_ms(fns: dict, reps: int = 7, calls: int = 10) -> dict:
+    """Device time of one call of each callable: ``calls`` calls captured
+    in a CUDA graph, the graph's replays timed with CUDA events (median of
+    ``reps``), so the host work of a kernel's wrapper, which can outlast
+    the kernel, is not counted.  The callables must not synchronise."""
+    out = {}
+    cur = torch.cuda.current_stream()
+    for k, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            fn()                          # warm-up outside the capture
+        cur.wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            g.replay()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e) / calls)
+        out[k] = statistics.median(times)
+        del g
+    return out
+
+
+def bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes each read or written
+    once over HBM, or the operations over the float32 rate, the larger."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / FP32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"{a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
@@ -179,7 +238,7 @@ def synthetic_blocks(kind: str, B: int, nb: int, seed: int):
         x = np.repeat(rng.integers(0, 251, (nb, B // 6 + 1)), 6,
                       axis=1)[:, :B].astype(np.uint8)
     elif kind in ("sparse", "ragged_tail", "single", "min_count_4"):
-        x = bench.make_dataset(-(-nb * B // MIB), seed=seed)
+        x = datasets.make_dataset(-(-nb * B // MIB), seed=seed)
         x = x[:nb * B].reshape(nb, B).copy()
         if kind == "ragged_tail":
             lens[-3:] = [B - 777, 17, 0]
@@ -196,6 +255,19 @@ def synthetic_blocks(kind: str, B: int, nb: int, seed: int):
     elif kind == "min_count_1":
         x = rng.integers(0, 2, (nb, B), dtype=np.uint8)
         min_count = 1
+    elif kind == "tile_spanning":
+        # literals with runs across every 16 KiB boundary of the encode
+        # tiles and 16 KiB output tiles of the decode: 1..12 bytes on each
+        # side (emitted or not at min_count 6), and one run over 2+ tiles
+        x = rng.integers(0, 256, (nb, B), dtype=np.uint8)
+        for b in range(nb):
+            for k, edge in enumerate(range(TILE, B, TILE)):
+                lo, hi = int(rng.integers(1, 13)), int(rng.integers(1, 13))
+                x[b, edge - lo:edge + hi] = (b + k) % 251
+            if B > 3 * TILE:
+                x[b, TILE - 5:3 * TILE + 7] = 0
+        # block_len ending mid-tile
+        lens[:] = [B - (b * 4099) % min(TILE, B) for b in range(nb)]
     else:
         raise ValueError(kind)
     for b in range(nb):
@@ -225,22 +297,24 @@ def synthetic_columns(kind: str, B: int, nb: int, seed: int):
         x, lens, _, min_count = synthetic_blocks(kind, B, nb, seed)
         cap = planar.capacity_for(B, min_count)
         cols = list(native.planar_from_bytes(x, lens, cap, min_count))
-    lw = max(128, -(-int(cols[5].max()) // 128) * 128)
-    cols[3] = decode_sup.lits_to_words(
-        np.ascontiguousarray(cols[3][:, :min(lw, B)]))
+    lw = min(max(128, -(-int(cols[5].max()) // 128) * 128), B)
+    lits = np.ascontiguousarray(cols[3][:, :lw])
+    cols[3] = decode_sup.lits_to_words(lits) if lw % 4 == 0 else lits
     return cols + [lens]
 
 
 def check_decode_cases(dev) -> int:
     worst = 0
     kinds = ("dense", "sparse", "all_literal", "whole_run", "ragged_tail",
-             "zero_count_mid", "min_count_1")
-    for B in (4096, 65536, 262144):
+             "zero_count_mid", "min_count_1", "tile_spanning")
+    # 20011 and 20012: B % 16 != 0, the bytes form and words with
+    # W % 4 != 0 (the unvectorised stores)
+    for B in (4096, 20011, 20012, 65536, 262144):
         for i, kind in enumerate(kinds):
             cols = synthetic_columns(kind, B, 8, seed=i + 1)
             t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                  for a in cols]
-            for words in (True, False):
+            for words in (True, False) if B % 4 == 0 else (False,):
                 k = decode_sup.decode_columns_device(*t, block_size=B,
                                                      out_words=words)
                 p = decode_sup.decode_columns_plain(*t, block_size=B,
@@ -258,8 +332,9 @@ def check_decode_cases(dev) -> int:
 def check_encode_cases(dev) -> int:
     worst = 0
     kinds = ("dense", "sparse", "all_literal", "whole_run", "ragged_tail",
-             "single", "min_count_1", "min_count_4")
-    for B in (4096, 65536, 196608, 262144):
+             "single", "min_count_1", "min_count_4", "tile_spanning")
+    # 20011: B % 16 != 0 (tiles copied by the threads, not by TMA)
+    for B in (4096, 20011, 65536, 196608, 262144):
         for i, kind in enumerate(kinds):
             x, lens, only_sym, mc = synthetic_blocks(kind, B, 8, seed=i + 1)
             if kind == "min_count_1":
@@ -279,6 +354,46 @@ def check_encode_cases(dev) -> int:
             worst = max(worst, err)
         log(f"  hrt1_encode == plain: {len(kinds)} kinds at B={B}")
     return worst
+
+
+def check_extremes(dev) -> tuple[int, int]:
+    """A 4 MiB one-block stream through both kernels; a capacity of exactly
+    the blocks' command count (its padding written by the tail tile); one
+    slot less must raise.  Returns the worst errors (encode, decode)."""
+    x = torch.from_numpy(datasets.make_dataset(4)[None].copy()).to(dev)
+    B = x.shape[1]
+    tl = torch.tensor([B], dtype=torch.int32, device=dev)
+    kw = dict(capacity=planar.capacity_for(B, 6), min_count=6)
+    k = encode_sup.encode_blocks_kernel(x, tl, **kw)
+    pb = device.encode_blocks(x, tl, **kw)
+    e_enc = max(max_abs_err(a, b) for a, b in zip(k, (
+        pb.sym, pb.count, pb.lit_len, pb.lits, pb.n_cmds, pb.n_lits)))
+    e_dec = max_abs_err(decode_sup.decode_columns_device(*k, tl, block_size=B),
+                        decode_sup.decode_columns_plain(*k, tl, block_size=B))
+    if e_enc or e_dec:
+        raise AssertionError(f"4 MiB one block: hrt1_encode err {e_enc}, "
+                             f"hrt1_decode err {e_dec}")
+    log(f"  hrt1_encode, hrt1_decode == plain: one 4 MiB block "
+        f"({int(k[4][0])} commands)")
+    x, lens, _, _ = synthetic_blocks("sparse", 65536, 8, seed=3)
+    xd, ld = torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev)
+    tight = int(device.encode_blocks(xd, ld, capacity=planar.capacity_for(
+        65536, 6)).n_cmds.max())
+    k = encode_sup.encode_blocks_kernel(xd, ld, capacity=tight)
+    pb = device.encode_blocks(xd, ld, capacity=tight)
+    e = max(max_abs_err(a, b) for a, b in zip(k, (
+        pb.sym, pb.count, pb.lit_len, pb.lits, pb.n_cmds, pb.n_lits)))
+    if e:
+        raise AssertionError(f"hrt1_encode != plain at capacity {tight}")
+    try:
+        encode_sup.encode_blocks_kernel(xd, ld, capacity=tight - 1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("hrt1_encode took a block over capacity")
+    log(f"  hrt1_encode == plain at the tight capacity {tight}; "
+        f"{tight - 1} raises")
+    return max(e_enc, e), e_dec
 
 
 def deep_planes(pk: dict, arrs: dict):
@@ -350,7 +465,7 @@ def compress_split(raw: bytes, dev, reps: int = 3) -> dict:
         t.append(time.perf_counter())
         ms = np.diff(t) * 1e3
         best = ms if best is None else np.minimum(best, ms)
-    if blob != api.compress(raw, "8 Bit", backend="native"):
+    if blob != api.compress(raw, "8 Bit", backend="native", device="cpu"):
         raise AssertionError("compress stages != native compress")
     return dict(zip(("to_blocks_h2d", "encode", "d2h", "serialize"),
                     best.tolist()))
@@ -382,11 +497,19 @@ def k4_phase(dev, card: str):
             raise AssertionError(f"{k} != plain {name!r}: err={err}")
         errs[k] = max(errs[k], err)
         log(f"  {k} == plain {name!r} on [256, 2048, 128] bf16")
-    t = cuda_ms({**{k: (lambda fn=getattr(micro_word, k): fn(pv))
-                    for k in outs},
-                 **{n: (lambda fn=fn: fn(pv))
-                    for n, fn in micro_word.PLAIN.items()}},
-                reps=7, calls=5)
+    nb, R, row = pv.shape
+    w = torch.tensor([4.0, 3.0, 2.0, 1.0], dtype=torch.bfloat16, device=dev)
+    library = {   # one PyTorch call of each function, exact on these ints
+        "word_slice_sum": lambda: torch.sum(
+            pv.view(nb, R // 4, 4, row), 2, dtype=torch.int32),
+        "word_sampled_prefix": lambda: torch.matmul(
+            pv.view(nb, R // 4, 4, 32, 4), w)}
+    t = graph_ms({k: (lambda fn=getattr(micro_word, k): fn(pv))
+                  for k in outs}, calls=5)
+    t.update(cuda_ms({**{n: (lambda fn=fn: fn(pv))
+                         for n, fn in micro_word.PLAIN.items()},
+                      **{f"library {k}": fn for k, fn in library.items()}},
+                     reps=7, calls=5))
     gb = (pv.numel() * 2 + outs["word_slice_sum"].numel() * 4) / 1e9
     log(f"[{card}] K4 (128 MiB bf16 in, 64 MiB int32 out): "
         + "; ".join(f"{n} {ms:.4f} ms" for n, ms in t.items())
@@ -397,15 +520,19 @@ def k4_phase(dev, card: str):
              "word_sampled_prefix": min(t["16 small matmuls"],
                                         t["4 fused [128,512]"],
                                         t["1 big [512,512]"])}
-    times = {k: (t[k], plain[k]) for k in outs}
-    return launches, errs, times
+    times = {k: (t[k], plain[k], t[f"library {k}"]) for k in outs}
+    io = nbytes(pv, outs["word_slice_sum"])
+    n_out = outs["word_slice_sum"].numel()
+    bounds = {"word_slice_sum": bound(io, 3 * n_out),
+              "word_sampled_prefix": bound(io, 8 * n_out)}
+    return launches, errs, times, bounds
 
 
 def ref_rows(dct: bytes) -> dict:
     """name -> (raw, codec, blob) of the reference-stream rows."""
     t0 = time.perf_counter()
     rows = {"dct32_8bit": (dct[:32 * MIB], "8 Bit")}
-    src = bench.make_dataset(REF_MIB + 1, seed=5).tobytes()
+    src = datasets.make_dataset(REF_MIB + 1, seed=5).tobytes()
     for codec in REF_CODECS:
         rows[codec] = (src[:REF_MIB * MIB + 13], codec)
     out = {}
@@ -555,7 +682,7 @@ def mmtf_phase(dev, card: str):
                                      f"encode={encode} err={e}")
             err = max(err, e)
         log(f"  mmtf_scan == plain on [8, 4096], {lanes} lanes, both ways")
-    data = bench.make_dataset(2)[:MIB + 11].tobytes()
+    data = datasets.make_dataset(2)[:MIB + 11].tobytes()
     api.reset_kernel_launch_counts()
     encs = {}
     for lanes in (16, 32):
@@ -595,7 +722,7 @@ def mmtf_phase(dev, card: str):
                 x1 = x
         log(f"  mmtf_scan == plain on the main path's [1, {full}], "
             f"{lanes} lanes, both ways")
-    big = bench.make_dataset(16)
+    big = datasets.make_dataset(16)
     for unit, host in ((1, mmtf.bitmmtf8_encode), (2, mmtf.bitmmtf16_encode)):
         x = torch.from_numpy(big).to(dev)[None]
         enc = mmtf_device.bitmmtf_encode_device(x, unit=unit)
@@ -605,13 +732,19 @@ def mmtf_phase(dev, card: str):
                            x):
             raise AssertionError(f"Bit-MMTF {8 * unit} round trip")
     log("Bit-MMTF 8 / 16: 16 MiB equal the host encode and round-trip")
+    k1 = mmtf_device.mmtf_scan(x1, lanes=16, encode=True)
+    # a one-block scan runs for milliseconds: CUDA events, host work
+    # negligible beside it
     t = cuda_ms({"mmtf_scan": lambda: mmtf_device.mmtf_scan(
         x1, lanes=16, encode=True)}, reps=5, calls=2)["mmtf_scan"]
+    # each byte's move to front walks its rank + 1 history entries
+    ranks = k1[0].to(torch.int64)
+    mmtf_bound = bound(nbytes(x1, *k1), float((ranks + 1).sum()))
     log(f"[{card}] mmtf_scan, 1 MiB DCT, 16 lanes, one block: kernel "
         f"{t:.4f} ms, plain {plain_ms[16, True]:.4f} ms ({MIB // 16} steps "
         f"of torch ops); plain 16-lane decode {plain_ms[16, False]:.4f} ms, "
         f"32 lanes {plain_ms[32, True]:.4f} / {plain_ms[32, False]:.4f} ms")
-    return launches, err, (t, plain_ms[16, True])
+    return launches, err, (t, plain_ms[16, True], None), mmtf_bound
 
 
 # ---------------------------------------------------------------------------
@@ -628,7 +761,8 @@ import torch.distributed as tdist
 from hypersonic_rle_kit_tpu_torch import api
 from hypersonic_rle_kit_tpu_torch.ops import (decode_sup, device, encode_sup,
                                               planar, transfer)
-from hypersonic_rle_kit_tpu_torch.parallel import dist
+from hypersonic_rle_kit_tpu_torch.parallel import container, dist
+from hypersonic_rle_kit_tpu_torch.utils import native
 
 def err(a, b):
     assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape)
@@ -730,7 +864,7 @@ def dist_phase(dct: bytes, native_blob: bytes, dev, card: str,
         f"{single_wall * 1e3:.1f} ms")
 
     raw = dct[:16 * MIB]
-    want = api.compress(raw, "8 Bit", backend="native")
+    want = api.compress(raw, "8 Bit", backend="native", device="cpu")
     on_wire = []
     all_gather = torch.distributed.all_gather
 
@@ -804,15 +938,16 @@ def main() -> int:
 
     # ---- inputs of the main paths: (raw, codec) and native blobs ----
     t0 = time.perf_counter()
-    dct = bench.make_dataset(64).tobytes()
-    dct16 = bench.make_dataset(17)[:16 * MIB + 1001].tobytes()
+    dct = datasets.make_dataset(64).tobytes()
+    dct16 = datasets.make_dataset(17)[:16 * MIB + 1001].tobytes()
     crows = {"dct64": (dct, "8 Bit"),
              "dct64_single": (dct, "8 Bit Single"),
-             "random16": (bench.make_random_dataset(16).tobytes(), "8 Bit"),
-             "bwt16": (bench.make_bwt_dataset(16).tobytes(), "8 Bit"),
+             "random16": (datasets.make_random_dataset(16).tobytes(), "8 Bit"),
+             "bwt16": (datasets.make_bwt_dataset(16).tobytes(), "8 Bit"),
              "dct16_w32": (dct16[:16 * MIB], "32 Bit (Symbol)"),
              "dct16p_w24": (dct16, "24 Bit (Symbol)")}
-    native_blobs = {name: api.compress(raw, codec, backend="native")
+    native_blobs = {name: api.compress(raw, codec, backend="native",
+                                       device="cpu")
                     for name, (raw, codec) in crows.items()}
     blob = native_blobs["dct64"]
     info, _ = container.parse(blob)
@@ -854,6 +989,8 @@ def main() -> int:
         raise AssertionError(f"hrt1_decode != plain on the DCT columns")
     log("  hrt1_decode == plain on the DCT container's resolved columns")
     err_k3 = check_encode_cases(dev)
+    e3, e1 = check_extremes(dev)
+    err_k3, err_k1 = max(err_k3, e3), max(err_k1, e1)
     cap = planar.capacity_for(B, 6)
     xd, tl = transfer.to_device(x, dev), transfer.to_device(lens, dev)
     ek = encode_sup.encode_blocks_kernel(xd, tl, capacity=cap, min_count=6)
@@ -900,36 +1037,50 @@ def main() -> int:
             raise AssertionError(f"{k} never launched on the main path")
     del outs
 
-    # ---- 5. times ----
-    kt = cuda_ms({
+    # ---- 5. times: device time of one call (CUDA graph replays), and the
+    # CUDA-event time of back-to-back calls, host work included ----
+    kt = graph_ms({
         "hrt1_decode": lambda: decode_sup.decode_columns_device(
             *dargs, block_size=B, out_words=True),
+        "hrt1_resolve_deep": lambda: unpack_device._resolve_deep(*args, **kw),
+        "hrt1_encode": lambda: encode_sup._launch(xd, tl, None, cap, 6)})
+    kt.update(cuda_ms({
         "decode_plain": lambda: decode_sup.decode_columns_plain(
             *dargs, block_size=B, out_words=True),
-        "hrt1_resolve_deep": lambda: unpack_device._resolve_deep(*args, **kw),
         "resolve_plain": lambda: unpack_device.resolve_deep_plain(*args, **kw),
-    })
-    gb = len(dct) / 1e9
-    log(f"[{card}] hrt1_decode {kt['hrt1_decode']:.4f} ms "
-        f"({gb / kt['hrt1_decode'] * 1e3:.2f} GB/s decoded) vs plain "
-        f"{kt['decode_plain']:.4f} ms; hrt1_resolve_deep "
-        f"{kt['hrt1_resolve_deep']:.4f} ms vs plain "
-        f"{kt['resolve_plain']:.4f} ms ({len(dct) >> 20} MiB DCT, "
-        f"{pk['info'].n_blocks} blocks)")
-    # the kernel alone (no capacity check), the checked wrapper (one
-    # synchronisation per call) and the plain encoder (one per call too)
-    kt.update(cuda_ms({
+        "encode_plain": lambda: device.encode_blocks(
+            xd, tl, capacity=cap, min_count=6)}, reps=5, calls=4))
+    ev = cuda_ms({
+        "hrt1_decode": lambda: decode_sup.decode_columns_device(
+            *dargs, block_size=B, out_words=True),
         "hrt1_encode": lambda: encode_sup._launch(xd, tl, None, cap, 6),
         "encode_checked": lambda: encode_sup.encode_blocks_kernel(
-            xd, tl, capacity=cap, min_count=6),
-        "encode_plain": lambda: device.encode_blocks(
-            xd, tl, capacity=cap, min_count=6),
-    }, reps=5, calls=4))
-    log(f"[{card}] hrt1_encode {kt['hrt1_encode']:.4f} ms "
-        f"({gb / kt['hrt1_encode'] * 1e3:.2f} GB/s encoded), checked "
-        f"wrapper {kt['encode_checked']:.4f} ms, plain "
-        f"{kt['encode_plain']:.4f} ms ({len(dct) >> 20} MiB DCT, "
-        f"{x.shape[0]} blocks)")
+            xd, tl, capacity=cap, min_count=6)}, reps=7, calls=5)
+    n_cmds_sum = int(arrs["n_cmds"].sum())
+    n_lits_sum = int(arrs["n_lits"].sum())
+    nb_ = x.shape[0]
+    bounds = {
+        # the commands and literals the blocks hold, read once; the words
+        # written once
+        "hrt1_decode": bound(9 * n_cmds_sum + n_lits_sum + 8 * nb_
+                             + 4 * nb_ * (B // 4), nb_ * B),
+        "hrt1_resolve_deep": bound(nbytes(*args, *rk), rk[0].numel()),
+        # x read once; literal rows and fixed-capacity columns written once
+        "hrt1_encode": bound(2 * nb_ * B + 9 * nb_ * cap + 12 * nb_,
+                             nb_ * B),
+    }
+    gb = len(dct) / 1e9
+    for k, p in (("hrt1_decode", "decode_plain"),
+                 ("hrt1_resolve_deep", "resolve_plain"),
+                 ("hrt1_encode", "encode_plain")):
+        log(f"[{card}] {k}: device {kt[k]:.4f} ms ({gb / kt[k] * 1e3:.2f} "
+            f"GB/s of {len(dct) >> 20} MiB DCT, {nb_} blocks), bound "
+            f"{bounds[k][0]:.4f} ms by {bounds[k][1]} = "
+            f"{100 * bounds[k][0] / kt[k]:.1f}% of it; plain {kt[p]:.4f} ms")
+    log(f"[{card}] CUDA events over back-to-back calls: hrt1_decode wrapper "
+        f"{ev['hrt1_decode']:.4f} ms, hrt1_encode launch "
+        f"{ev['hrt1_encode']:.4f} ms, checked wrapper "
+        f"{ev['encode_checked']:.4f} ms")
     for name in ("dct64", "dct64_flat"):
         b, raw = rows[name]
         p = container.pack_for_device(b)
@@ -950,7 +1101,8 @@ def main() -> int:
     split = compress_split(dct, dev)
     wk = best_wall(lambda: api.compress(dct, "8 Bit", backend="kernel",
                                         device=dev))
-    wn = best_wall(lambda: api.compress(dct, "8 Bit", backend="native"))
+    wn = best_wall(lambda: api.compress(dct, "8 Bit", backend="native",
+                                        device="cpu"))
     log(f"[{card}] compress wall (64 MiB DCT, 8 Bit), best of 3: stages "
         + " | ".join(f"{k} {v:.2f}" for k, v in split.items())
         + f" ms; api.compress kernel {wk * 1e3:.1f} ms, native "
@@ -958,20 +1110,21 @@ def main() -> int:
 
     errs = {"hrt1_decode": err_k1, "hrt1_resolve_deep": err_k2,
             "hrt1_encode": err_k3}
-    times = {k: (kt[k], kt[p]) for k, p in (
+    times = {k: (kt[k], kt[p], None) for k, p in (
         ("hrt1_decode", "decode_plain"), ("hrt1_resolve_deep", "resolve_plain"),
         ("hrt1_encode", "encode_plain"))}
 
     # ---- 6-9. K4, reference streams, Low Entropy / rle8m, MMTF ----
-    k4_launches, k4_errs, k4_times = k4_phase(dev, card)
+    k4_launches, k4_errs, k4_times, k4_bounds = k4_phase(dev, card)
     launches.update(k4_launches)
     errs.update(k4_errs)
     times.update(k4_times)
+    bounds.update(k4_bounds)
     errs["hrt1_decode"] = max(errs["hrt1_decode"],
                               ref_phase(dct, dev, card),
                               le_phase(dct, dev, card))
-    mmtf_launches, errs["mmtf_scan"], times["mmtf_scan"] = mmtf_phase(dev,
-                                                                       card)
+    (mmtf_launches, errs["mmtf_scan"], times["mmtf_scan"],
+     bounds["mmtf_scan"]) = mmtf_phase(dev, card)
     launches.update(mmtf_launches)
     for k in KERNELS:
         if launches[k] < 1:
@@ -987,7 +1140,8 @@ def main() -> int:
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         dict(name=k, **meta, launches=launches[k], max_abs_err=errs[k],
-             ms=times[k][0], plain_ms=times[k][1])
+             ms=times[k][0], plain_ms=times[k][1], bound_ms=bounds[k][0],
+             bound_by=bounds[k][1], library_ms=times[k][2])
         for k, meta in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,9 @@ Port of hypersonic_rle_kit_tpu/api.py; both directions run on the device:
 - ``compress(data, codec, backend="kernel", device="cuda")``: the blocks go
   to the card in one pinned copy, the width de-interleave runs there, the
   hrt1_encode kernel (ops/encode_sup.py) emits the planar columns, and they
-  come back through pinned buffers to the shared
-  ``container.serialize_blocks``.
+  come back through pinned buffers to ``container.serialize_blocks``.
 - ``decompress(buf, device=...)``: the host slices the container into
-  payload sections (container.pack_for_device, shared), ships them in two
+  payload sections (container.pack_for_device), ships them in two
   copies, and the device bit-unpacks, resolves (hrt1_resolve_deep, deep
   layout), decodes (hrt1_decode) and re-interleaves the widths.
 
@@ -21,13 +20,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hypersonic_rle_kit_tpu import spec as spec_mod
-from hypersonic_rle_kit_tpu.parallel import container
-from hypersonic_rle_kit_tpu.utils import native
-
+from . import spec as spec_mod
 from .ops import _kernels, decode_sup, device as device_ops, encode_sup
 from .ops import planar, unpack_device
 from .ops.transfer import to_device, to_host
+from .parallel import container
+from .utils import native
 
 # per-family minimum run length for the HRT1 cost model: one command must
 # not cost more than it saves (8-bit commands cost ~3 bytes)
@@ -178,14 +176,15 @@ def _encode_on_device(x: np.ndarray, lens: np.ndarray, w: int, cap: int,
 
 def compress(data, codec: str | int | spec_mod.CodecSpec = "8 Bit", *,
              block_size: int | None = None, backend: str = "auto",
-             device="cpu") -> bytes:
+             device="cuda") -> bytes:
     """Compress to the HRT1 container; the bytes equal the JAX package's.
 
+    ``device`` is the card unless the caller asks for ``"cpu"``.
     ``backend``: 'kernel' (the hrt1_encode wrapper on ``device``: the
     kernel on CUDA, its plain version on the CPU), 'device' (the plain torch
     ``ops/device.encode_blocks`` on ``device``), 'native' (C++ host
-    encoder), 'host' (numpy golden) or 'auto' (native if the library
-    builds, else 'kernel' when ``device`` is CUDA, else 'device')."""
+    encoder), 'host' (numpy golden) or 'auto' ('kernel' when ``device`` is
+    CUDA; on the CPU native if the library builds, else 'device')."""
     if backend not in ("auto", "kernel", "device", "native", "host"):
         raise ValueError(f"unknown backend {backend!r}")
     cspec = _resolve(codec)
@@ -204,8 +203,8 @@ def compress(data, codec: str | int | spec_mod.CodecSpec = "8 Bit", *,
             np.zeros(0, np.int32), np.zeros(0, np.int32))
     dev = torch.device(device)
     if backend == "auto":
-        backend = ("native" if native.lib() is not None
-                   else "kernel" if dev.type == "cuda" else "device")
+        backend = ("kernel" if dev.type == "cuda"
+                   else "native" if native.lib() is not None else "device")
     x, lens = _to_blocks(arr, block_size)
     tlens = _lane_lens(lens, w)
     only_sym = _dominant_bytes(x, tlens) if single else None

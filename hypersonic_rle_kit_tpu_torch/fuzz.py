@@ -1,9 +1,9 @@
 """Device fuzz lane: HRT1 containers, real and mutated, through the port's
 decoders.
 
-Port of the ``--device`` lane of hypersonic_rle_kit_tpu/fuzz.py; its
-input generators and codec subset are shared (that module imports no
-JAX).  Each input is compressed with each codec and decompressed on the
+Port of the ``--device`` lane of hypersonic_rle_kit_tpu/fuzz.py, with its
+own copies of that module's input generators and codec subset (the same
+seeds give the same inputs).  Each input is compressed with each codec and decompressed on the
 device; then the container is mutated (random bit flips) and truncated.
 A mutated container must raise ``ContainerError`` or decode without
 another exception, and a truncated one must raise ``ContainerError``: on
@@ -25,12 +25,61 @@ import sys
 import numpy as np
 import torch
 
-from hypersonic_rle_kit_tpu import spec as spec_mod
-from hypersonic_rle_kit_tpu.fuzz import (DEVICE_FUZZ_CODECS,
-                                         iterative_inputs, random_inputs)
-from hypersonic_rle_kit_tpu.parallel import container
+from . import api, spec as spec_mod
+from .parallel import container
 
-from . import api
+BOUNDARY_LENGTHS = (
+    [1, 2, 3, 5, 7, 13, 30, 31, 32, 33, 125, 126, 127, 128, 129, 254, 255,
+     256, 257, 280, 767, 768, 8191, 8192]
+    + [65527, 65528, 65535, 65536, 65544, 65560]
+)
+
+
+def _section(rng: np.random.Generator, length: int, kind: str,
+             sym_len: int) -> np.ndarray:
+    if kind == "random":
+        return rng.integers(0, 256, length, dtype=np.uint8)
+    sym = rng.integers(0, 256, sym_len, dtype=np.uint8)
+    reps = length // sym_len + 2
+    return np.tile(sym, reps)[:length]
+
+
+def iterative_inputs(sections: int, seed: int = 1):
+    """Deterministic odometer over (length-set, kinds, symbol length)."""
+    rng = np.random.default_rng(seed)
+    length_sets = [BOUNDARY_LENGTHS[i::7] for i in range(7)]
+    for sym_len in (1, 2, 3, 4, 7, 8, 12, 16):
+        for lengths in length_sets:
+            for kinds in itertools.islice(
+                    itertools.product(("random", "repeat"), repeat=sections),
+                    0, None, max(1, 2 ** sections // 8)):
+                parts = [
+                    _section(rng, lengths[i % len(lengths)], kinds[i], sym_len)
+                    for i in range(sections)
+                ]
+                yield np.concatenate(parts).tobytes()
+
+
+def random_inputs(sections: int, iterations: int, seed: int = 0xF00D):
+    rng = np.random.default_rng(seed)
+    for _ in range(iterations):
+        parts = []
+        for _ in range(sections):
+            length = int(rng.choice(BOUNDARY_LENGTHS))
+            kind = "random" if rng.random() < 0.5 else "repeat"
+            parts.append(_section(rng, length, kind,
+                                  int(rng.integers(1, 17))))
+        yield np.concatenate(parts).tobytes()
+
+
+# default device-fuzz codec subset: one per HRT1 parameter family
+# (width x threshold x single), see api.hrt1_params
+DEVICE_FUZZ_CODECS = (
+    "8 Bit", "8 Bit Packed", "8 Bit Single", "8 Bit 3LUT Short",
+    "16 Bit (Symbol)", "24 Bit (Byte)", "32 Bit Packed (Byte)",
+    "48 Bit (Symbol)", "64 Bit 3LUT Short Grdy (Byte)",
+    "128 Bit (Symbol)",
+)
 
 
 def _decompress_synced(blob: bytes, dev: torch.device) -> bytes:
@@ -50,7 +99,7 @@ def fuzz_device_one(data: bytes, s: spec_mod.CodecSpec,
     mutations and 3 truncations of the container; returns an error string
     or None.  On CUDA the round trip must launch hrt1_decode."""
     dev = torch.device(device)
-    blob = api.compress(data, s)
+    blob = api.compress(data, s, device=dev)
     launches = api.kernel_launch_counts()["hrt1_decode"]
     dec = _decompress_synced(blob, dev)
     if dec != data:

@@ -36,13 +36,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 # entry point -> (library, argtypes); each returns a cudaError_t as int
 _ENTRY = {
-    "hrt1_decode": ("hrt1", [_P] * 8 + [_I64, _I32, _I32, _I32, _I32, _P]),
+    "hrt1_decode": ("hrt1", [_P] * 9 + [_I64, _I32, _I32, _I32, _I32, _P]),
     "hrt1_resolve_deep": ("hrt1", [_P] * 11 + [_I64, _I32, _I32, _I32, _I32,
                                                _P]),
     "hrt1_encode": ("hrt1", [_P] * 10 + [_I64, _I32, _I32, _I32, _I32, _P]),
     "mmtf_scan": ("hrt1", [_P, _P, _P, _I64, _I64, _I32, _I32, _P]),
     "word_slice_sum": ("micro_word", [_P, _P, _I64, _I32, _P]),
     "word_sampled_prefix": ("micro_word", [_P, _P, _I64, _P]),
+}
+
+# size helpers: name -> (library, argtypes); each returns an int64
+_SIZES = {
+    "hrt1_encode_state_ints": ("hrt1", [_I64, _I32]),
+    "hrt1_decode_scratch_ints": ("hrt1", [_I64, _I32, _I32]),
+    "hrt1_decode_state_ints": ("hrt1", [_I64, _I32]),
 }
 
 _launches = dict.fromkeys(_ENTRY, 0)
@@ -133,6 +140,10 @@ def lib(name: str = "hrt1") -> ctypes.CDLL:
         if owner == name:
             fn = getattr(L, entry)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    for entry, (owner, argtypes) in _SIZES.items():
+        if owner == name:
+            fn = getattr(L, entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int64
     err = getattr(L, f"{name}_error_string")
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
     return L

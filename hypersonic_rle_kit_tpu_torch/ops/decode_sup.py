@@ -129,15 +129,20 @@ def decode_columns_device(sym, count, lit_len, lits, n_cmds, n_lits,
     B = block_size
     W = -(-B // 4)
     lb = _lit_bytes(lits)
-    scratch = torch.empty((nb, 2, C), dtype=torch.int32, device=dev)
+    L = _kernels.lib()
+    scratch = torch.empty(L.hrt1_decode_scratch_ints(nb, C, W),
+                          dtype=torch.int32, device=dev)
+    # the starts pass's look-back records and work ticket, zeroed
+    state = torch.zeros(L.hrt1_decode_state_ints(nb, C), dtype=torch.int32,
+                        device=dev)
     out = torch.empty((nb, W), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernels.lib().hrt1_decode(
+        rc = L.hrt1_decode(
             _kernels.ptr(sym), _kernels.ptr(count), _kernels.ptr(lit_len),
             _kernels.ptr(lb), _kernels.ptr(n_cmds), _kernels.ptr(block_len),
-            _kernels.ptr(scratch), _kernels.ptr(out), nb, C, lb.shape[1], B,
-            W, stream)
+            _kernels.ptr(scratch), _kernels.ptr(state), _kernels.ptr(out),
+            nb, C, lb.shape[1], B, W, stream)
     _kernels.check(rc, "hrt1_decode")
     _kernels.count_launch("hrt1_decode")
     if out_words:

@@ -58,15 +58,18 @@ def _launch(x, block_len, only_sym, capacity: int, min_count: int):
     lits = torch.empty((nb, B), dtype=torch.uint8, device=dev)
     n_cmds = torch.empty(nb, dtype=_I32, device=dev)
     n_lits = torch.empty(nb, dtype=_I32, device=dev)
-    scratch = torch.empty((nb, 2, capacity), dtype=_I32, device=dev)
+    L = _kernels.lib()
+    # the tiles' look-back records and the work ticket, zeroed
+    state = torch.zeros(L.hrt1_encode_state_ints(nb, B), dtype=_I32,
+                        device=dev)
     vec = int(B % 16 == 0 and x.data_ptr() % 16 == 0)
     p = _kernels.ptr
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernels.lib().hrt1_encode(
+        rc = L.hrt1_encode(
             p(x), p(block_len), None if only_sym is None else p(only_sym),
             p(sym), p(count), p(lit_len), p(lits), p(n_cmds), p(n_lits),
-            p(scratch), nb, B, capacity, min_count, vec, stream)
+            p(state), nb, B, capacity, min_count, vec, stream)
     _kernels.check(rc, "hrt1_encode")
     _kernels.count_launch("hrt1_encode")
     return sym, count, lit_len, lits, n_cmds, n_lits

@@ -20,8 +20,7 @@ import struct
 import numpy as np
 import torch
 
-from hypersonic_rle_kit_tpu.formats.low_entropy import _symbol_to_count
-
+from ..formats.low_entropy import _symbol_to_count
 from . import decode_sup
 from .transfer import to_host
 

@@ -10,10 +10,9 @@ the s phases (output positions with the same index mod s), a plain byte
 run, so the walk emits s phase streams and the card re-interleaves them
 with one transpose.
 
-The host half is shared, not copied: the native walk
-``native.ref_parse_planar`` and, where the library is missing, the JAX
-package's Python walkers and ``parse_to_planar`` (that module imports jax
-only inside its own ``decompress_ref_device``).  What the JAX package has
+The host half is the native walk ``native.ref_parse_planar`` and, where
+the library is missing, the Python walkers and ``parse_to_planar`` of
+``ops/ref_walk.py`` (the port's copies of the JAX package's).  What the JAX package has
 only for its TPU kernel's limits is gone: the ``min_run >= 4`` and
 ``fits_kernel`` gate, the swallow-all ``except`` and the XLA fallback.
 hrt1_decode takes every block size and run length, so the packed grammars
@@ -25,11 +24,9 @@ from __future__ import annotations
 
 import torch
 
-from hypersonic_rle_kit_tpu import spec as spec_mod
-from hypersonic_rle_kit_tpu.ops import ref_device as host_walk
-from hypersonic_rle_kit_tpu.utils import native
-
-from . import decode_sup
+from .. import spec as spec_mod
+from ..utils import native
+from . import decode_sup, ref_walk as host_walk
 from .transfer import to_host
 
 DEFAULT_BLOCK = host_walk.DEFAULT_BLOCK

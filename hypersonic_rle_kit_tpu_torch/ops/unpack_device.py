@@ -15,8 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hypersonic_rle_kit_tpu.parallel import container
-
+from ..parallel import container
 from . import _kernels, decode_sup
 
 _I32 = torch.int32

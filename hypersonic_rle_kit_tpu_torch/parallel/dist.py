@@ -34,13 +34,11 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from hypersonic_rle_kit_tpu import spec as spec_mod
-from hypersonic_rle_kit_tpu.parallel import container
-
-from .. import api
+from .. import api, spec as spec_mod
 from ..ops import decode_sup, encode_sup, planar
 from ..ops.planar import PlanarBlocks
 from ..ops.transfer import to_device
+from . import container
 
 _I32 = torch.int32
 # powers of two 2^0 .. 2^30: the bit width of a non-negative int32 is the

@@ -3,7 +3,7 @@
 
     python3 scripts/profile_torch_decode.py [--mib 64] [--iters 20] [--out F]
 
-For the DCT corpus (bench.make_dataset) in its auto-picked layout (deep +
+For the DCT corpus (datasets.make_dataset) in its auto-picked layout (deep +
 literal dictionary) and in the flat layout:
 
 - torch.profiler over ``iters`` calls of ``dispatch_packed`` on shipped
@@ -32,11 +32,10 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-import bench  # noqa: E402
-from hypersonic_rle_kit_tpu.parallel import container  # noqa: E402
-from hypersonic_rle_kit_tpu.utils import native  # noqa: E402
-from hypersonic_rle_kit_tpu_torch import api  # noqa: E402
+from hypersonic_rle_kit_tpu_torch import api, datasets  # noqa: E402
 from hypersonic_rle_kit_tpu_torch.ops import planar, unpack_device  # noqa: E402
+from hypersonic_rle_kit_tpu_torch.parallel import container  # noqa: E402
+from hypersonic_rle_kit_tpu_torch.utils import native  # noqa: E402
 
 
 def _dev_us(evt) -> float:
@@ -123,8 +122,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}")
-    raw = bench.make_dataset(args.mib).tobytes()
-    deep = api.compress(raw, "8 Bit", backend="native")
+    raw = datasets.make_dataset(args.mib).tobytes()
+    deep = api.compress(raw, "8 Bit", backend="native", device="cpu")
     B = container.DEFAULT_BLOCK_SIZE
     x, lens = api._to_blocks(np.frombuffer(raw, np.uint8), B)
     cols = native.planar_from_bytes(x, lens, planar.capacity_for(B, 6), 6)

@@ -6,6 +6,8 @@ interpret mode) and the input, for every container layout.  Byte-exact:
 the tolerance is zero.
 """
 
+import inspect
+import pathlib
 import subprocess
 import sys
 
@@ -13,10 +15,10 @@ import numpy as np
 import pytest
 
 from hypersonic_rle_kit_tpu import api as japi
-from hypersonic_rle_kit_tpu.parallel import container
-from hypersonic_rle_kit_tpu.utils import native
 from hypersonic_rle_kit_tpu_torch import api
 from hypersonic_rle_kit_tpu_torch.ops import planar, unpack_device
+from hypersonic_rle_kit_tpu_torch.parallel import container
+from hypersonic_rle_kit_tpu_torch.utils import native
 
 B = 4096
 
@@ -45,7 +47,7 @@ def test_compress_bytes_match_jax(codec, backend):
     if backend == "native" and native.lib() is None:
         pytest.skip("native runtime unavailable")
     raw = _data(50_001, 1)
-    blob = api.compress(raw, codec, backend=backend)
+    blob = api.compress(raw, codec, backend=backend, device="cpu")
     assert blob == japi.compress(raw, codec, backend=backend)
     assert api.decompress(blob, device="cpu") == raw
 
@@ -76,7 +78,7 @@ def test_compress_kernel_backend_runs():
 
 @pytest.mark.parametrize("have_native", [True, False])
 def test_compress_auto_backend_rule(monkeypatch, have_native):
-    """auto: native if the library builds, else the kernel on CUDA, else
+    """auto on an explicit device="cpu": native if the library builds, else
     the plain device encoder; the bytes are the same either way."""
     seen = []
     real = api._encode_on_device
@@ -94,11 +96,33 @@ def test_compress_auto_backend_rule(monkeypatch, have_native):
     blob = api.compress(raw, "8 Bit", block_size=B, device="cpu")
     assert seen == ([] if have_native else [False])
     assert blob == japi.compress(raw, "8 Bit", block_size=B, backend="host")
+    if have_native:
+        assert blob == api.compress(raw, "8 Bit", block_size=B,
+                                    backend="native", device="cpu")
+
+
+def test_compress_defaults_to_the_card(monkeypatch):
+    """compress runs on the card unless asked for the CPU: the default
+    device is "cuda", and auto picks the hrt1_encode kernel there, native
+    library or not."""
+    assert inspect.signature(api.compress).parameters["device"].default \
+        == "cuda"
+
+    class Picked(Exception):
+        pass
+
+    def spy(x, lens, w, cap, min_count, only_sym, dev, *, kernel):
+        raise Picked(dev.type, kernel)
+
+    monkeypatch.setattr(api, "_encode_on_device", spy)
+    with pytest.raises(Picked) as e:
+        api.compress(_data(9_001, 9), "8 Bit", block_size=B)
+    assert e.value.args == ("cuda", True)
 
 
 def test_compress_bounds_and_empty():
     assert api.compress_bounds(10 ** 6) == japi.compress_bounds(10 ** 6)
-    blob = api.compress(b"")
+    blob = api.compress(b"", device="cpu")
     assert blob == japi.compress(b"")
     assert api.decompress(blob, device="cpu") == b""
 
@@ -172,21 +196,22 @@ def test_decompress_widths_with_tail_block(codec):
     including a partial tail block."""
     w = api.hrt1_params(api._resolve(codec))[0]
     raw = _data(5 * B * w // 2 + 7 * w - 1, 4)
-    blob = api.compress(raw, codec, block_size=B * w)
+    blob = api.compress(raw, codec, block_size=B * w, device="cpu")
     assert blob == japi.compress(raw, codec, block_size=B * w)
     assert api.decompress(blob, device="cpu") == raw
     assert japi.decompress(blob, backend="device") == raw
 
 
 def test_decompress_rejects_bad_width():
-    blob = bytearray(api.compress(_data(9000, 5), "8 Bit", block_size=4097))
+    blob = bytearray(api.compress(_data(9000, 5), "8 Bit", block_size=4097,
+                                  device="cpu"))
     blob[4] = japi._resolve("32 Bit (Symbol)").index     # w=4, 4097 % 4 != 0
     with pytest.raises(container.ContainerError):
         api.decompress(bytes(blob), device="cpu")
 
 
 def test_decompress_rejects_unknown_device():
-    blob = api.compress(_data(9000, 6), "8 Bit", block_size=B)
+    blob = api.compress(_data(9000, 6), "8 Bit", block_size=B, device="cpu")
     with pytest.raises(ValueError):
         api.decompress(blob, device="meta")
 
@@ -198,7 +223,7 @@ def test_fuzz_corpus_roundtrip_matches_jax(codec):
     and odd lengths) through both packages at a small block size."""
     import fuzz_inputs
     for raw in fuzz_inputs.corpus(count=6):
-        blob = api.compress(raw, codec, block_size=B)
+        blob = api.compress(raw, codec, block_size=B, device="cpu")
         assert blob == japi.compress(raw, codec, block_size=B)
         assert api.decompress(blob, device="cpu") == raw
 
@@ -218,7 +243,7 @@ def test_hostile_deep_container_raises():
         data[pos:pos + run] = k % 251
         k += 1
         pos += run + int(rng.integers(0, 6))
-    blob = api.compress(data.tobytes())
+    blob = api.compress(data.tobytes(), device="cpu")
     info, blocks = container.parse(blob)
     assert info.deep
     bl = blocks[0]
@@ -239,48 +264,29 @@ def test_hostile_deep_container_raises():
 
 
 # ---------------------------------------------------------------------------
-# (g) the port imports no JAX
+# (g) the port imports nothing of the JAX package
 # ---------------------------------------------------------------------------
 
+_ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
 def test_port_imports_no_jax():
-    code = (
-        "import sys\n"
-        "import hypersonic_rle_kit_tpu_torch\n"
-        "import hypersonic_rle_kit_tpu_torch.api\n"
-        "import hypersonic_rle_kit_tpu_torch.ops.decode_sup\n"
-        "import hypersonic_rle_kit_tpu_torch.ops.device\n"
-        "import hypersonic_rle_kit_tpu_torch.ops.encode_sup\n"
-        "import hypersonic_rle_kit_tpu_torch.ops.unpack_device\n"
-        "import hypersonic_rle_kit_tpu_torch.ops.ref_device\n"
-        "import hypersonic_rle_kit_tpu_torch.ops.low_entropy_device\n"
-        "import hypersonic_rle_kit_tpu_torch.ops.mmtf_device\n"
-        "import hypersonic_rle_kit_tpu_torch.ops.bitpack\n"
-        "import hypersonic_rle_kit_tpu_torch.ops.micro_word\n"
-        "import hypersonic_rle_kit_tpu_torch.parallel.dist\n"
-        "import hypersonic_rle_kit_tpu_torch.graft_entry\n"
-        "import hypersonic_rle_kit_tpu_torch.fuzz\n"
-        "import hypersonic_rle_kit_tpu_torch.bench_cli\n"
-        "import chip_smoke\n"
-        "sys.path.insert(0, 'scripts')\n"
-        "import micro_word_torch\n"
-        "assert 'jax' not in sys.modules\n"
-        "# the JAX-package modules the port shares: the grammar walkers (jax\n"
-        "# only inside their own decoder), the fuzz inputs and the bench\n"
-        "# CLI's row helpers; each must stay jax-free at import\n"
-        "shared = {'hypersonic_rle_kit_tpu.ops',\n"
-        "          'hypersonic_rle_kit_tpu.ops.ref_device',\n"
-        "          'hypersonic_rle_kit_tpu.fuzz',\n"
-        "          'hypersonic_rle_kit_tpu.bench_cli'}\n"
-        "assert shared <= set(sys.modules), shared - set(sys.modules)\n"
-        "bad = sorted(m for m in sys.modules if m not in shared and (\n"
-        "    m == 'jax' or m.startswith(('jax.', 'hypersonic_rle_kit_tpu.ops',\n"
-        "                                'hypersonic_rle_kit_tpu.api',\n"
-        "                                'hypersonic_rle_kit_tpu.parallel.dist',\n"
-        "                                'hypersonic_rle_kit_tpu.fuzz',\n"
-        "                                'hypersonic_rle_kit_tpu.bench_cli'))))\n"
-        "assert not bad, bad\n"
-        "assert not __import__('torch').cuda.is_initialized()\n")
-    root = __file__.rsplit("/", 2)[0]
-    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+    """A fresh interpreter imports every port module, chip_smoke.py and the
+    port's scripts; afterwards neither the JAX package nor jax is loaded,
+    and CUDA is not initialised."""
+    port = _ROOT / "hypersonic_rle_kit_tpu_torch"
+    mods = sorted(".".join(f.relative_to(_ROOT).with_suffix("").parts)
+                  .removesuffix(".__init__") for f in port.rglob("*.py"))
+    scripts = [f.stem for f in sorted((_ROOT / "scripts").glob("*_torch*.py"))]
+    code = "\n".join(
+        ["import importlib, sys", "sys.path.insert(0, 'scripts')"]
+        + [f"importlib.import_module({m!r})" for m in mods + ["chip_smoke"]
+           + scripts]
+        + ["bad = sorted(m for m in sys.modules if m in ('jax', 'bench',"
+           " 'hypersonic_rle_kit_tpu') or m.startswith(('jax.',"
+           " 'hypersonic_rle_kit_tpu.')))",
+           "assert not bad, bad",
+           "assert not sys.modules['torch'].cuda.is_initialized()"])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -13,13 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from hypersonic_rle_kit_tpu.parallel import container
-from hypersonic_rle_kit_tpu.utils import native
 from hypersonic_rle_kit_tpu_torch import api
 from hypersonic_rle_kit_tpu_torch.ops import (_kernels, decode_sup, device,
                                               encode_sup, low_entropy_device,
                                               micro_word, mmtf_device, planar,
                                               ref_device, unpack_device)
+from hypersonic_rle_kit_tpu_torch.parallel import container
+from hypersonic_rle_kit_tpu_torch.utils import native
 
 pytestmark = pytest.mark.cuda
 
@@ -152,7 +152,8 @@ def _deep_blob(seed):
         k += 1
         pos += run + int(rng.integers(0, 9))
     raw = data.tobytes()
-    return api.compress(raw, block_size=65536, backend="host"), raw
+    return api.compress(raw, block_size=65536, backend="host",
+                        device="cpu"), raw
 
 
 def test_resolve_kernel_matches_plain(dev):
@@ -277,6 +278,81 @@ def test_encode_kernel_rejects_overflow_and_bad_lengths(dev):
         encode_sup.encode_blocks_kernel(x, bl.long(), capacity=8192)
 
 
+# ---------------------------------------------------------------------------
+# the tiled designs of hrt1_encode and hrt1_decode (16 KiB tiles)
+# ---------------------------------------------------------------------------
+
+TILE = 16384
+
+
+def _tile_spanning(B, nb, seed):
+    """Literals with runs across every 16 KiB tile edge (1..12 bytes on
+    each side: emitted or not at min_count 6), a run over two tiles and a
+    literal stretch over two, block_len ending mid-tile."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, (nb, B), dtype=np.uint8)
+    for b in range(nb):
+        for k, edge in enumerate(range(TILE, B, TILE)):
+            lo, hi = int(rng.integers(1, 13)), int(rng.integers(1, 13))
+            x[b, edge - lo:edge + hi] = (b + k) % 251
+        if B > 3 * TILE:
+            x[b, TILE - 5:3 * TILE + 7] = 0
+    lens = np.array([B - (b * 4099) % min(TILE, B) for b in range(nb)],
+                    np.int32)
+    for b in range(nb):
+        x[b, lens[b]:] = 0
+    return x, lens
+
+
+@pytest.mark.parametrize("B", [20011, 65536, 262144])
+def test_tile_edges_match_plain(dev, B):
+    """Both kernels on runs and literal gaps across tile edges, block_len
+    ending mid-tile, and B % 16 != 0 (thread-copied tiles, byte stores)."""
+    x, lens = _tile_spanning(B, 4, B)
+    xt, lt = torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev)
+    kw = dict(capacity=planar.capacity_for(B, 6), min_count=6)
+    k = encode_sup.encode_blocks_kernel(xt, lt, **kw)
+    pb = device.encode_blocks(xt, lt, **kw)
+    for a, b in zip(k, (pb.sym, pb.count, pb.lit_len, pb.lits, pb.n_cmds,
+                        pb.n_lits)):
+        assert torch.equal(a, b), B
+    got = decode_sup.decode_columns_device(*k, lt, block_size=B)
+    assert torch.equal(got, decode_sup.decode_columns_plain(*k, lt,
+                                                            block_size=B))
+    assert torch.equal(got, xt)
+
+
+def test_one_block_of_4_mib(dev):
+    """A 4 MiB block (a one-subsection Low Entropy stream's shape) spreads
+    over the card in both kernels."""
+    x = torch.from_numpy(_dct(4 << 20, 11)[None].copy()).to(dev)
+    bl = torch.tensor([x.shape[1]], dtype=torch.int32, device=dev)
+    kw = dict(capacity=planar.capacity_for(x.shape[1], 6), min_count=6)
+    k = encode_sup.encode_blocks_kernel(x, bl, **kw)
+    pb = device.encode_blocks(x, bl, **kw)
+    for a, b in zip(k, (pb.sym, pb.count, pb.lit_len, pb.lits, pb.n_cmds,
+                        pb.n_lits)):
+        assert torch.equal(a, b)
+    assert torch.equal(decode_sup.decode_columns_device(
+        *k, bl, block_size=x.shape[1]), x)
+
+
+def test_encode_tight_capacity(dev):
+    """At a capacity of exactly the commands the tail tile writes the
+    column padding; one slot less raises."""
+    x, lens, _, _ = _blocks("sparse", 65536, 4, 3)
+    xt, lt = torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev)
+    tight = int(device.encode_blocks(xt, lt, capacity=planar.capacity_for(
+        65536, 6)).n_cmds.max())
+    k = encode_sup.encode_blocks_kernel(xt, lt, capacity=tight)
+    pb = device.encode_blocks(xt, lt, capacity=tight)
+    for a, b in zip(k, (pb.sym, pb.count, pb.lit_len, pb.lits, pb.n_cmds,
+                        pb.n_lits)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="capacity"):
+        encode_sup.encode_blocks_kernel(xt, lt, capacity=tight - 1)
+
+
 @pytest.mark.parametrize("codec", ["8 Bit", "8 Bit Single", "8 Bit Packed",
                                    "16 Bit (Symbol)", "24 Bit (Symbol)",
                                    "32 Bit (Symbol)", "128 Bit (Symbol)"])
@@ -287,7 +363,7 @@ def test_compress_kernel_matches_native(dev, codec):
     api.reset_kernel_launch_counts()
     blob = api.compress(raw, codec, backend="kernel", device=dev)
     assert api.kernel_launch_counts()["hrt1_encode"] == 1
-    assert blob == api.compress(raw, codec, backend="native")
+    assert blob == api.compress(raw, codec, backend="native", device="cpu")
     assert api.decompress(blob, device=dev) == raw
 
 
@@ -359,7 +435,7 @@ def test_mmtf_scan_matches_plain(dev, lanes, encode):
 
 
 def test_mmtf_transform_on_card(dev):
-    from hypersonic_rle_kit_tpu.formats import mmtf as mmtf_host
+    from hypersonic_rle_kit_tpu_torch.formats import mmtf as mmtf_host
     data = _dct(100_000 + 11, 5).tobytes()
     api.reset_kernel_launch_counts()
     for lanes in (16, 32):
@@ -375,7 +451,7 @@ def test_mmtf_transform_on_card(dev):
                                    "24 Bit (Symbol)", "64 Bit 3LUT (Symbol)",
                                    "128 Bit Packed (Byte)"])
 def test_ref_stream_on_card(dev, codec):
-    from hypersonic_rle_kit_tpu.formats import registry
+    from hypersonic_rle_kit_tpu_torch.formats import registry
     raw = _dct(300_001, 6).tobytes()
     blob = registry.compress(raw, codec)
     api.reset_kernel_launch_counts()
@@ -394,7 +470,7 @@ def test_graft_entry_on_card_matches_cpu(dev):
 
 
 def test_device_fuzz_lane_on_card(dev, tmp_path, monkeypatch):
-    from hypersonic_rle_kit_tpu import spec
+    from hypersonic_rle_kit_tpu_torch import spec
     from hypersonic_rle_kit_tpu_torch import fuzz
     monkeypatch.chdir(tmp_path)
     api.reset_kernel_launch_counts()
@@ -410,7 +486,7 @@ def test_device_fuzz_lane_on_card(dev, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("subs", [1, 3, 32])
 def test_low_entropy_on_card(dev, subs):
-    from hypersonic_rle_kit_tpu.formats import low_entropy as le
+    from hypersonic_rle_kit_tpu_torch.formats import low_entropy as le
     raw = _dct(200_003, subs).tobytes()
     api.reset_kernel_launch_counts()
     assert low_entropy_device.rle8m_decompress_device(

@@ -10,9 +10,9 @@ import pytest
 import torch
 
 import __graft_entry__
-from hypersonic_rle_kit_tpu import spec as spec_mod
-from hypersonic_rle_kit_tpu.parallel import container
 from hypersonic_rle_kit_tpu_torch import api, bench_cli, fuzz, graft_entry
+from hypersonic_rle_kit_tpu_torch import spec as spec_mod
+from hypersonic_rle_kit_tpu_torch.parallel import container
 
 
 def test_entry_matches_jax():

@@ -11,11 +11,12 @@ representative subset.  Byte-exact: the tolerance is zero.
 import numpy as np
 import pytest
 
-from hypersonic_rle_kit_tpu import spec
+from hypersonic_rle_kit_tpu import spec as jspec
 from hypersonic_rle_kit_tpu.formats import registry
 from hypersonic_rle_kit_tpu.ops import ref_device as jref
-from hypersonic_rle_kit_tpu.utils import native
+from hypersonic_rle_kit_tpu_torch import spec
 from hypersonic_rle_kit_tpu_torch.ops import ref_device
+from hypersonic_rle_kit_tpu_torch.utils import native
 
 CODECS = [
     "8 Bit", "8 Bit Packed", "8 Bit Single", "8 Bit Single Packed",
@@ -91,7 +92,7 @@ def test_walk_columns_match_jax(codec, ds):
     cols, usize, s, B = ref_device.walk(blob, cspec, 4096)
     m = -(-usize // s)
     assert B == min(4096, max(1024, -(-m // 1024) * 1024))
-    it, _, _ = jref._iter_for(cspec, blob)
+    it, _, _ = jref._iter_for(jspec.by_name(codec), blob)
     _, want = jref.parse_to_planar(blob, it, usize, s, B)
     for mine, theirs in zip(cols, want):
         np.testing.assert_array_equal(mine, theirs)
