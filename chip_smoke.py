@@ -51,11 +51,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 8. Low Entropy (+Short) of 4 MiB and an rle8m container of 32
    subsections, decoded on the card, equal to the input; the same stage
    split and plain comparison; the Python walker's share of each wall.
-9. MMTF: mmtf_scan equal to its plain version on [8, 4096] (16 and 32
-   lanes, both ways); mmtf_transform of 1 MiB + 11 B (its main path,
-   counted) equal to formats.mmtf and round-tripping, and its four scans
-   equal to the plain version at their shapes; Bit-MMTF 8 / 16 on
-   16 MiB; mmtf_scan timed on 1 MiB beside its plain version.
+9. MMTF: mmtf_scan equal to its plain version on [8, 4096] and at the
+   chunk edges of its kernel (no units, one unit, C - 1 / C / C + 1 and
+   2C - 1 / 2C / 2C + 1 units, several blocks; 16 and 32 lanes, both
+   ways); mmtf_transform of 1 MiB + 11 B (its main path, counted) equal
+   to formats.mmtf and round-tripping, and its four scans equal to the
+   plain version at their shapes; Bit-MMTF 8 / 16 on 16 MiB; mmtf_scan's
+   device time on 1 MiB of DCT and 1 MiB of uniform bytes (16 lanes, one
+   block, encode and decode) beside its plain version.
 10. distribution: (a) two gloo ranks, fresh interpreters sharing the card,
     run parallel/dist.compress_distributed on the 64 MiB DCT corpus
     (256 KiB blocks), whose bytes must equal the native container, and
@@ -221,6 +224,8 @@ def nbytes(*ts) -> int:
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"{a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+    if a.numel() == 0:
+        return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
@@ -682,6 +687,26 @@ def mmtf_phase(dev, card: str):
                                      f"encode={encode} err={e}")
             err = max(err, e)
         log(f"  mmtf_scan == plain on [8, 4096], {lanes} lanes, both ways")
+    C = mmtf_device.CHUNK
+    shapes = ((2, 0), (1, 1), (3, 37), (1, C - 1), (1, C), (1, C + 1),
+              (2, 2 * C - 1), (1, 2 * C), (1, 2 * C + 1))
+    for lanes in (16, 32):
+        for nb, units in shapes:
+            x = torch.from_numpy(rng.integers(0, 256, (nb, units * lanes),
+                                              dtype=np.uint8)).to(dev)
+            x[:, ::3] %= 5
+            for encode in (True, False):
+                k = mmtf_device.mmtf_scan(x, lanes=lanes, encode=encode)
+                p = mmtf_device.mmtf_scan_plain(x, lanes=lanes, encode=encode)
+                torch.cuda.synchronize()
+                e = max(max_abs_err(a, b) for a, b in zip(k, p))
+                if e:
+                    raise AssertionError(f"mmtf_scan != plain: [{nb}, "
+                                         f"{units} units] lanes={lanes} "
+                                         f"encode={encode} err={e}")
+                err = max(err, e)
+        log(f"  mmtf_scan == plain at the chunk edges (C = {C}): "
+            f"{list(shapes)} (blocks, units), {lanes} lanes, both ways")
     data = datasets.make_dataset(2)[:MIB + 11].tobytes()
     api.reset_kernel_launch_counts()
     encs = {}
@@ -733,18 +758,36 @@ def mmtf_phase(dev, card: str):
             raise AssertionError(f"Bit-MMTF {8 * unit} round trip")
     log("Bit-MMTF 8 / 16: 16 MiB equal the host encode and round-trip")
     k1 = mmtf_device.mmtf_scan(x1, lanes=16, encode=True)
-    # a one-block scan runs for milliseconds: CUDA events, host work
-    # negligible beside it
-    t = cuda_ms({"mmtf_scan": lambda: mmtf_device.mmtf_scan(
-        x1, lanes=16, encode=True)}, reps=5, calls=2)["mmtf_scan"]
+    # 1 MiB of uniform bytes (mean rank ~128): its encoding against the
+    # host format, and the kernel's round trip
+    rnd = np.random.default_rng(0).integers(0, 256, MIB, dtype=np.uint8)
+    xr = torch.from_numpy(rnd).to(dev)[None]
+    kr = mmtf_device.mmtf_scan(xr, lanes=16, encode=True)
+    if kr[0][0].cpu().numpy().tobytes() != mmtf._mmtf(rnd.tobytes(), 16,
+                                                      encode=True):
+        raise AssertionError("mmtf_scan of 1 MiB uniform bytes != "
+                             "formats.mmtf")
+    if not torch.equal(mmtf_device.mmtf_scan(kr[0], lanes=16,
+                                             encode=False)[0], xr):
+        raise AssertionError("mmtf_scan round trip of 1 MiB uniform bytes")
+    t = graph_ms({f"{name} {way}": (lambda x=x, e=way == "encode":
+                                    mmtf_device.mmtf_scan(x, lanes=16,
+                                                          encode=e))
+                  for name, xe, xd in (("DCT", x1, k1[0]),
+                                       ("uniform", xr, kr[0]))
+                  for way, x in (("encode", xe), ("decode", xd))})
     # each byte's move to front walks its rank + 1 history entries
     ranks = k1[0].to(torch.int64)
     mmtf_bound = bound(nbytes(x1, *k1), float((ranks + 1).sum()))
-    log(f"[{card}] mmtf_scan, 1 MiB DCT, 16 lanes, one block: kernel "
-        f"{t:.4f} ms, plain {plain_ms[16, True]:.4f} ms ({MIB // 16} steps "
-        f"of torch ops); plain 16-lane decode {plain_ms[16, False]:.4f} ms, "
-        f"32 lanes {plain_ms[32, True]:.4f} / {plain_ms[32, False]:.4f} ms")
-    return launches, err, (t, plain_ms[16, True], None), mmtf_bound
+    log(f"[{card}] mmtf_scan device time, 1 MiB, 16 lanes, one block "
+        f"(C = {C}): " + "; ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        + f"; bound {mmtf_bound[0]:.4f} ms by {mmtf_bound[1]}; plain "
+        f"(CUDA events, one call, DCT) encode {plain_ms[16, True]:.4f} ms "
+        f"({MIB // 16} steps of torch ops), decode "
+        f"{plain_ms[16, False]:.4f} ms, 32 lanes "
+        f"{plain_ms[32, True]:.4f} / {plain_ms[32, False]:.4f} ms")
+    return (launches, err, (t["DCT encode"], plain_ms[16, True], None),
+            mmtf_bound)
 
 
 # ---------------------------------------------------------------------------

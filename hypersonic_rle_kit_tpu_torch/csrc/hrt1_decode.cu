@@ -41,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kThreads = 512;              // starts pass
@@ -509,14 +511,46 @@ int n_tiles_for(int32_t W) { return (4 * W + kOut - 1) / kOut; }
 
 int64_t chunks_for(int32_t C) { return (C + kTile - 1) / kTile; }
 
+// Persistent CTAs of `kernel` that device `dev` holds at once.
 template <typename K>
-int fill_grid(K kernel, int threads, int64_t units) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  const int64_t cap = int64_t(per_sm < 1 ? 1 : per_sm) * sms;
-  return static_cast<int>(units < cap ? units : cap);
+cudaError_t resident(K kernel, int threads, int dev, int64_t* out) {
+  int sms = 0, per_sm = 0;
+  cudaError_t e =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0);
+  *out = int64_t(per_sm < 1 ? 1 : per_sm) * sms;
+  return e;
+}
+
+struct GridCaps {
+  int64_t starts, fill;
+};
+
+// The starts and fill grids' caps on the current device, computed before
+// that device's first launch; host threads launching for the first time at
+// once take the lock in turn.
+cudaError_t grid_caps(GridCaps* out) {
+  constexpr int kMaxDevices = 64;
+  static std::mutex mu;
+  static GridCaps caps[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  GridCaps& c = caps[dev];
+  if (c.fill == 0) {
+    GridCaps n{};
+    e = resident(hrt1_starts_kernel, kThreads, dev, &n.starts);
+    if (e == cudaSuccess)
+      e = resident(hrt1_fill_kernel, kFillThreads, dev, &n.fill);
+    if (e != cudaSuccess) return e;
+    c = n;
+  }
+  *out = c;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -546,17 +580,15 @@ int hrt1_decode(const void* sym, const void* count, const void* lit_len,
                 const void* lits, const void* n_cmds, const void* block_len,
                 void* scratch, void* state, void* out, int64_t nb, int32_t C,
                 int32_t lit_bytes, int32_t B, int32_t W, void* stream) {
-  static int starts_grid_cap = 0, fill_grid_cap = 0;
-  if (fill_grid_cap == 0) {
-    starts_grid_cap = fill_grid(hrt1_starts_kernel, kThreads, 1ll << 40);
-    fill_grid_cap = fill_grid(hrt1_fill_kernel, kFillThreads, 1ll << 40);
-  }
+  GridCaps caps{};
+  const cudaError_t ce = grid_caps(&caps);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
   if (nb > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int n_tiles = n_tiles_for(W);
     const int64_t chunks = nb * chunks_for(C);
     hrt1_starts_kernel<<<static_cast<unsigned>(
-        chunks < starts_grid_cap ? chunks : starts_grid_cap), kThreads, 0,
+        chunks < caps.starts ? chunks : caps.starts), kThreads, 0,
         s>>>(static_cast<const int32_t*>(count),
              static_cast<const int32_t*>(lit_len),
              static_cast<const int32_t*>(n_cmds),
@@ -566,7 +598,7 @@ int hrt1_decode(const void* sym, const void* count, const void* lit_len,
     if (e != cudaSuccess) return static_cast<int>(e);
     const int64_t units = nb * n_tiles;
     hrt1_fill_kernel<<<static_cast<unsigned>(
-        units < fill_grid_cap ? units : fill_grid_cap), kFillThreads, 0, s>>>(
+        units < caps.fill ? units : caps.fill), kFillThreads, 0, s>>>(
         static_cast<const uint8_t*>(sym),
         static_cast<const int32_t*>(lit_len),
         static_cast<const uint8_t*>(lits),

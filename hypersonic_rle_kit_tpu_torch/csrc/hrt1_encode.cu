@@ -64,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -590,6 +592,36 @@ hrt1_encode_kernel(const uint8_t* __restrict__ x,
   }
 }
 
+// Persistent CTAs the current device holds at once.  The shared-memory
+// attribute applies to one device only, so it is set, and the grid sized,
+// per device before that device's first launch; host threads launching for
+// the first time at once take the lock in turn.
+cudaError_t grid_cap(int64_t* out) {
+  constexpr int kMaxDevices = 64;
+  static std::mutex mu;
+  static int64_t ctas[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (ctas[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaFuncSetAttribute(hrt1_encode_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, hrt1_encode_kernel, kThreads, kSmem);
+    if (e != cudaSuccess) return e;
+    ctas[dev] = int64_t(per_sm < 1 ? 1 : per_sm) * sms;
+  }
+  *out = ctas[dev];
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -612,24 +644,12 @@ int hrt1_encode(const void* x, const void* block_len, const void* only_sym,
                 void* n_cmds, void* n_lits, void* state, int64_t nb,
                 int32_t B, int32_t cap, int32_t min_count, int32_t vec,
                 void* stream) {
-  static int per_sm = 0, sms = 0;
-  if (per_sm == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        hrt1_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, hrt1_encode_kernel, kThreads, kSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (per_sm < 1) per_sm = 1;
-  }
+  int64_t cap_ctas = 0;
+  const cudaError_t e = grid_cap(&cap_ctas);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t units = nb * ((B + kTile - 1) / kTile);
   if (units > 0) {
-    const int64_t grid = units < int64_t(per_sm) * sms ? units
-                                                       : int64_t(per_sm) * sms;
+    const int64_t grid = units < cap_ctas ? units : cap_ctas;
     hrt1_encode_kernel<<<static_cast<unsigned>(grid), kThreads, kSmem,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(x), static_cast<const int32_t*>(block_len),

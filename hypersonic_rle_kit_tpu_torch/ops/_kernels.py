@@ -40,7 +40,7 @@ _ENTRY = {
     "hrt1_resolve_deep": ("hrt1", [_P] * 11 + [_I64, _I32, _I32, _I32, _I32,
                                                _P]),
     "hrt1_encode": ("hrt1", [_P] * 10 + [_I64, _I32, _I32, _I32, _I32, _P]),
-    "mmtf_scan": ("hrt1", [_P, _P, _P, _I64, _I64, _I32, _I32, _P]),
+    "mmtf_scan": ("hrt1", [_P] * 4 + [_I64, _I64, _I32, _I32, _I32, _P]),
     "word_slice_sum": ("micro_word", [_P, _P, _I64, _I32, _P]),
     "word_sampled_prefix": ("micro_word", [_P, _P, _I64, _P]),
 }
@@ -50,6 +50,7 @@ _SIZES = {
     "hrt1_encode_state_ints": ("hrt1", [_I64, _I32]),
     "hrt1_decode_scratch_ints": ("hrt1", [_I64, _I32, _I32]),
     "hrt1_decode_state_ints": ("hrt1", [_I64, _I32]),
+    "mmtf_scan_scratch_ints": ("hrt1", [_I64, _I64, _I32, _I32, _I32]),
 }
 
 _launches = dict.fromkeys(_ENTRY, 0)

@@ -7,9 +7,13 @@ for MMTF 256) and walks the stream one unit of ``lanes`` bytes at a time
 independent blocks, each with a fresh history.  The JAX package runs the
 serial walk as a ``lax.scan``; a loop of torch ops per unit would be bound
 by launches (~65 k steps per MiB at 16 lanes), so on CUDA tensors
-``mmtf_scan`` launches the hand-written kernel ``csrc/mmtf.cu`` (one thread
-per block and lane), and on CPU tensors it runs the plain version
-``mmtf_scan_plain``, the JAX package's step written in torch.
+``mmtf_scan`` launches the hand-written kernel ``csrc/mmtf.cu``, and on CPU
+tensors it runs the plain version ``mmtf_scan_plain``, the JAX package's
+step written in torch.  The kernel cuts each lane's chain into chunks of
+``CHUNK`` units whose serial passes start from the identity history, then
+composes the chunks' effects and fixes the outputs up;
+``mmtf_scan_chunked_plain`` carries out the same three phases in torch, so
+the CPU tests can hold that algebra against the JAX scan.
 
 Bit-MMTF (bit_mmtf.c:18-128) is the XOR delta of consecutive 1- or 2-byte
 units; its decode is a prefix XOR, here the parity of a per-bit cumulative
@@ -29,6 +33,9 @@ from . import _kernels
 
 _I32 = torch.int32
 _U8 = torch.uint8
+_I64 = torch.int64
+CHUNK = 512          # units per chunk of the kernel's serial passes
+MAX_CHUNK = 1024     # the kernel stages CHUNK x 32 lanes bytes per CTA
 
 
 def _check(x: torch.Tensor, lanes: int) -> None:
@@ -54,16 +61,99 @@ def mmtf_scan_plain(x: torch.Tensor, *, lanes: int, encode: bool):
     table = pos.expand(nb, lanes, 256).clone()
     out = torch.empty((nb, n // lanes, lanes), dtype=_U8, device=dev)
     for u in range(units.shape[1]):
-        if encode:
-            v = units[:, u]
-            d = torch.argmax((table == v[..., None]).to(_I32), dim=-1)
-        else:
-            d = units[:, u]
-            v = table.gather(-1, d[..., None])[..., 0]
-        shifted = torch.cat([v[..., None], table[..., :-1]], dim=-1)
-        table = torch.where(pos <= d[..., None], shifted, table)
+        table, d, v = _step(table, pos, units[:, u], encode)
         out[:, u] = d if encode else v
     return out.reshape(nb, n), table.to(_I32)
+
+
+def _step(h: torch.Tensor, pos: torch.Tensor, col: torch.Tensor,
+          encode: bool):
+    """One move-to-front step of histories ``h[..., 256]`` on the symbols
+    (encode) or positions (decode) ``col[...]``: ``(h', d, v)``; ``pos``
+    is ``arange(256)`` on h's device."""
+    if encode:
+        v = col
+        d = torch.argmax((h == v[..., None]).to(_I32), dim=-1)
+    else:
+        d = col
+        v = h.gather(-1, d[..., None])[..., 0]
+    shifted = torch.cat([v[..., None], h[..., :-1]], dim=-1)
+    return torch.where(pos <= d[..., None], shifted, h), d, v
+
+
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    """Each permutation's inverse along the last axis."""
+    pos = torch.arange(perm.shape[-1], device=perm.device).expand_as(perm)
+    return torch.empty_like(perm).scatter_(-1, perm, pos)
+
+
+def mmtf_scan_chunked_plain(x: torch.Tensor, *, lanes: int, encode: bool,
+                            chunk: int):
+    """The mmtf_scan kernel's decomposition, literally, in torch: the same
+    ``(out, table)`` as :func:`mmtf_scan_plain`, computed in three phases
+    over chunks of ``chunk`` units per (block, lane).  Used by the tests,
+    which hold the algebra the kernel relies on against the JAX scan.
+
+    1. Each chunk runs from the identity history.  Decode outputs are slots
+       of the chunk's start history, its final history the slot
+       permutation P_k; encode ranks of repeated symbols are already right,
+       and the chunk's first occurrences are marked (a symbol is new iff it
+       sits past the nd symbols seen so far).
+    2. The start histories: H_0 = identity, decode H_{k+1} = H_k[P_k],
+       encode H_{k+1} = L_k ++ (H_k without L_k), L_k the final history's
+       first nd entries.
+    3. Decode out = H_k[slot]; the j-th first occurrence of encode, of
+       symbol v, gets j + #{t ahead of v in H_k, t not among the chunk's
+       first j first occurrences}."""
+    _check(x, lanes)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    nb, n = x.shape
+    dev = x.device
+    units = n // lanes
+    u = x.reshape(nb, units, lanes).transpose(1, 2).long()   # [nb, lanes, U]
+    pos = torch.arange(256, device=dev)
+    ident = pos.expand(nb, lanes, 256)
+    out = torch.empty_like(u)
+    chunks = []
+    for lo in range(0, units, chunk):            # 1. identity passes
+        hi = min(lo + chunk, units)
+        h = ident
+        nd = torch.zeros((nb, lanes), dtype=_I64, device=dev)
+        first = torch.zeros((nb, lanes, hi - lo), dtype=torch.bool,
+                            device=dev)
+        for i in range(lo, hi):
+            h, d, v = _step(h, pos, u[..., i], encode)
+            if encode:
+                first[..., i - lo] = d >= nd
+                nd = nd + first[..., i - lo]
+            out[..., i] = d if encode else v
+        chunks.append((lo, hi, h, nd, first))
+    hk, starts = ident, []
+    for _, _, fin, nd, _ in chunks:              # 2. chunk effects in order
+        starts.append(hk)
+        if encode:
+            in_l = _inverse(fin).gather(-1, hk) < nd[..., None]
+            kept = hk.gather(-1, torch.argsort(in_l.to(torch.int16), dim=-1,
+                                               stable=True))
+            behind = kept.gather(-1, (pos - nd[..., None]).clamp(min=0))
+            hk = torch.where(pos < nd[..., None], fin, behind)
+        else:
+            hk = hk.gather(-1, fin)
+    for (lo, hi, _, _, first), h0 in zip(chunks, starts):   # 3. fix-up
+        seg = out[..., lo:hi]
+        if encode:
+            p = _inverse(h0).gather(-1, u[..., lo:hi])
+            j = torch.cumsum(first, -1) - first.long()
+            m = hi - lo
+            earlier = torch.ones((m, m), dtype=torch.bool, device=dev).tril(-1)
+            below = (earlier & first[..., None, :]
+                     & (p[..., None, :] < p[..., :, None])).sum(-1)
+            out[..., lo:hi] = torch.where(first, j + p - below, seg)
+        else:
+            out[..., lo:hi] = h0.gather(-1, seg)
+    return (out.transpose(1, 2).reshape(nb, n).to(_U8),
+            hk.to(_I32).contiguous())
 
 
 def mmtf_scan(x: torch.Tensor, *, lanes: int, encode: bool):
@@ -78,14 +168,27 @@ def mmtf_scan(x: torch.Tensor, *, lanes: int, encode: bool):
         return mmtf_scan_plain(x, lanes=lanes, encode=encode)
     if dev.type != "cuda":
         raise ValueError(f"mmtf_scan runs on CUDA or CPU tensors, not {dev}")
+    return _launch(x, lanes, encode, CHUNK)
+
+
+def _launch(x: torch.Tensor, lanes: int, encode: bool, chunk: int):
+    """Launch the mmtf_scan kernel on a checked CUDA tensor with chunks of
+    ``chunk`` units (1..MAX_CHUNK)."""
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in 1..{MAX_CHUNK}, got {chunk}")
     nb, n = x.shape
+    dev = x.device
+    L = _kernels.lib()
     out = torch.empty_like(x)
     table = torch.empty((nb, lanes, 256), dtype=_I32, device=dev)
+    scratch = torch.empty(
+        L.mmtf_scan_scratch_ints(nb, n, lanes, int(encode), chunk),
+        dtype=_I32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernels.lib().mmtf_scan(
-            _kernels.ptr(x), _kernels.ptr(out), _kernels.ptr(table), nb, n,
-            lanes, int(encode), stream)
+        rc = L.mmtf_scan(_kernels.ptr(x), _kernels.ptr(out),
+                         _kernels.ptr(table), _kernels.ptr(scratch), nb, n,
+                         lanes, int(encode), chunk, stream)
     _kernels.check(rc, "mmtf_scan")
     _kernels.count_launch("mmtf_scan")
     return out, table

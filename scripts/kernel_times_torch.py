@@ -18,13 +18,26 @@ change compare within one call (pass ``PARENT . . PARENT``).  Per root:
 - ``dispatch_deep`` / ``dispatch_flat``: ``unpack_device.dispatch_packed``
   on the shipped sections of the deep + litdict and the flat container;
 - ``le1_decode``: ``decode_columns_device`` on the one-block LE columns;
+- ``mmtf_{dct,rand}_{enc,dec}``: ``mmtf_device.mmtf_scan`` (16 lanes, one
+  block) on 1 MiB of the DCT corpus and 1 MiB of ``default_rng(0)``
+  uniform bytes, encoding them and decoding their MMTF 128 encoding;
 
 the kernels as the device time of one call (10 calls captured in a CUDA
-graph, its replays timed with CUDA events: no host work), and all five as
-the CUDA-event median of 11 samples of 10 back-to-back calls (host work
-of the wrappers included), after a warm-up; each kernel output held
-against its plain version (max |error|).  Prints one JSON line per root, then the card's name and
-power limit.
+graph, its replays timed with CUDA events: no host work), and all but the
+MMTF scans as the CUDA-event median of 11 samples of 10 back-to-back calls
+(host work of the wrappers included), after a warm-up; each kernel output
+held against its plain version (max |error|), the MMTF scans against the
+host format (``formats.mmtf``).  Prints one JSON line per root, then the
+card's name and power limit.
+
+``--mmtf-chunks C ...`` also times ``mmtf_scan``'s kernel at each chunk
+length C on the four MMTF inputs (roots whose wrapper takes a chunk
+length) and fits T(C) = a * C * ceil(K / SMs) + b * K + c by least
+squares, K = ceil(U / C) chunks of U units per lane (one CTA each): a is
+the chunk pass's step with one CTA of 16 warps per SM (its SMs run
+ceil(K / SMs) CTAs in turn, or side by side at the same issue rate), b the
+carry's step, c the rest (fix-up, launches).  It prints the three phases'
+times at the wrapper's own chunk length.
 """
 
 from __future__ import annotations
@@ -46,7 +59,7 @@ def make_inputs(d: pathlib.Path) -> None:
     import numpy as np
 
     from hypersonic_rle_kit_tpu_torch import api, datasets
-    from hypersonic_rle_kit_tpu_torch.formats import low_entropy
+    from hypersonic_rle_kit_tpu_torch.formats import low_entropy, mmtf
     from hypersonic_rle_kit_tpu_torch.ops import planar
     from hypersonic_rle_kit_tpu_torch.parallel import container
     from hypersonic_rle_kit_tpu_torch.utils import native
@@ -61,6 +74,12 @@ def make_inputs(d: pathlib.Path) -> None:
     (d / "dct64_deep.hrt1").write_bytes(
         api.compress(raw, "8 Bit", backend="native", device="cpu"))
     (d / "le4.bin").write_bytes(low_entropy.le_compress(raw[:4 * MIB]))
+    streams = {"dct": raw[:MIB],
+               "rand": np.random.default_rng(0).integers(
+                   0, 256, MIB, dtype=np.uint8).tobytes()}
+    for name, data in streams.items():
+        (d / f"mmtf_{name}.bin").write_bytes(data)
+        (d / f"mmtf_{name}.enc").write_bytes(mmtf._mmtf(data, 16, encode=True))
 
 
 def cuda_ms(fns: dict, reps: int = 11, calls: int = 10) -> dict:
@@ -113,7 +132,7 @@ def graph_ms(fns: dict, reps: int = 7, calls: int = 10) -> dict:
     return out
 
 
-def time_root(root: str, d: pathlib.Path) -> dict:
+def time_root(root: str, d: pathlib.Path, chunks: list[int]) -> dict:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -121,7 +140,8 @@ def time_root(root: str, d: pathlib.Path) -> dict:
     from hypersonic_rle_kit_tpu_torch import api
     from hypersonic_rle_kit_tpu_torch.ops import (decode_sup, device,
                                                   encode_sup,
-                                                  low_entropy_device, planar,
+                                                  low_entropy_device,
+                                                  mmtf_device, planar,
                                                   transfer, unpack_device)
 
     if not torch.cuda.is_available():
@@ -169,17 +189,58 @@ def time_root(root: str, d: pathlib.Path) -> dict:
         "le1_decode": lambda: decode_sup.decode_columns_device(
             *le, block_size=le_B),
     }
+    scans, sweep = {}, {}
+    for name in ("dct", "rand"):
+        for way, src, want in (("enc", "bin", "enc"), ("dec", "enc", "bin")):
+            x = torch.frombuffer(bytearray((d / f"mmtf_{name}.{src}")
+                                           .read_bytes()), dtype=torch.uint8)
+            x = x.to(dev)[None]
+            ref = torch.frombuffer(bytearray((d / f"mmtf_{name}.{want}")
+                                             .read_bytes()), dtype=torch.uint8)
+            key = f"mmtf_{name}_{way}"
+            errs[key] = err(mmtf_device.mmtf_scan(
+                x, lanes=16, encode=way == "enc")[0][0].cpu(), ref)
+            scans[key] = (lambda x=x, e=way == "enc":
+                          mmtf_device.mmtf_scan(x, lanes=16, encode=e))
+            if chunks and hasattr(mmtf_device, "_launch"):
+                for c in chunks:
+                    sweep[key, c] = (lambda x=x, e=way == "enc", c=c:
+                                     mmtf_device._launch(x, 16, e, c))
     dispatch = {
         "dispatch_deep": lambda: unpack_device.dispatch_packed(
             *packs["deep"], out_words=True),
         "dispatch_flat": lambda: unpack_device.dispatch_packed(
             *packs["flat"], out_words=True),
     }
-    return dict(root=root, device_ms=graph_ms(kernels),
-                event_ms=cuda_ms({**kernels, **dispatch}),
-                max_abs_err=errs,
-                shapes=dict(encode=list(x.shape), le_block=le_B,
-                            le_cmds=int(le_cols[4][0])))
+    res = dict(root=root, device_ms=graph_ms({**kernels, **scans}),
+               event_ms=cuda_ms({**kernels, **dispatch}),
+               max_abs_err=errs,
+               shapes=dict(encode=list(xd.shape), le_block=le_B,
+                           le_cmds=int(le_cols[4][0]), mmtf=[1, MIB]))
+    if sweep:
+        t = graph_ms(sweep)
+        res["mmtf_chunk_ms"] = {f"{k} C={c}": v for (k, c), v in t.items()}
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        res["mmtf_fit"] = {k: _fit(chunks, [t[k, c] for c in chunks],
+                                   MIB // 16, sms, mmtf_device.CHUNK)
+                           for k in scans}
+    return res
+
+
+def _fit(chunks: list[int], ms: list[float], units: int, sms: int,
+         chunk: int) -> dict:
+    """Least-squares T(C) = a C ceil(K / sms) + b K + c, K = ceil(U / C):
+    a and b in ns per step, and the phases at ``chunk`` in ms."""
+    import numpy as np
+
+    def row(c):
+        k = -(-units // c)
+        return [c * -(-k // sms), k, 1.0]
+    (a, b, c0), *_ = np.linalg.lstsq(np.array([row(c) for c in chunks]),
+                                     np.array(ms), rcond=None)
+    r = row(chunk)
+    return dict(step_ns=a * 1e6, carry_step_ns=b * 1e6, chunk=chunk,
+                chunk_pass_ms=a * r[0], carry_ms=b * r[1], rest_ms=c0)
 
 
 def _deep_args(pk, arrs, unpack_device):
@@ -198,12 +259,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--roots", nargs="*", default=[str(ROOT)])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--mmtf-chunks", nargs="*", type=int, default=[])
     ap.add_argument("--root", help=argparse.SUPPRESS)
     ap.add_argument("--data", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.root:
-        print(json.dumps(time_root(args.root, pathlib.Path(args.data))),
-              flush=True)
+        print(json.dumps(time_root(args.root, pathlib.Path(args.data),
+                                   args.mmtf_chunks)), flush=True)
         return 0
     lines = []
     with tempfile.TemporaryDirectory() as td:
@@ -211,7 +273,8 @@ def main() -> int:
         for r in args.roots:
             res = subprocess.run(
                 [sys.executable, __file__, "--root",
-                 str(pathlib.Path(r).resolve()), "--data", td],
+                 str(pathlib.Path(r).resolve()), "--data", td,
+                 "--mmtf-chunks", *map(str, args.mmtf_chunks)],
                 capture_output=True, text=True, timeout=900)
             if res.returncode:
                 sys.stderr.write(res.stdout + res.stderr)

@@ -420,18 +420,69 @@ def test_word_kernels_count_launches(dev):
     assert n["word_slice_sum"] == 1 and n["word_sampled_prefix"] == 1
 
 
+def _mmtf_input(nb, units, lanes, seed, dev):
+    """[nb, units * lanes] bytes, skewed in every third column; every byte
+    value appears once the stream holds 256 bytes."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, (nb, units * lanes), dtype=np.uint8)
+    x[:, ::3] %= 5
+    flat = x.reshape(-1)
+    flat[:min(256, flat.size)] = np.arange(min(256, flat.size))
+    return torch.from_numpy(x).to(dev)
+
+
+# (blocks, units) around the kernel's chunk length C: no units, one unit,
+# fewer than C, C - 1 / C / C + 1, 2C - 1 / 2C / 2C + 1, many blocks
+_C = mmtf_device.CHUNK
+MMTF_SHAPES = [(2, 0), (1, 1), (3, 37), (1, _C - 1), (1, _C), (1, _C + 1),
+               (2, 2 * _C - 1), (1, 2 * _C), (1, 2 * _C + 1), (8, 256)]
+
+
+@pytest.mark.parametrize("shape", MMTF_SHAPES, ids=str)
 @pytest.mark.parametrize("lanes", [1, 16, 32])
 @pytest.mark.parametrize("encode", [True, False])
-def test_mmtf_scan_matches_plain(dev, lanes, encode):
-    rng = np.random.default_rng(lanes)
-    for nb, units in ((3, 37), (1, 1), (2, 0), (8, 256)):
-        x = torch.from_numpy(rng.integers(0, 256, (nb, units * lanes),
-                                          dtype=np.uint8)).to(dev)
-        x[:, ::3] %= 5
-        k = mmtf_device.mmtf_scan(x, lanes=lanes, encode=encode)
-        p = mmtf_device.mmtf_scan_plain(x, lanes=lanes, encode=encode)
-        torch.cuda.synchronize()
-        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+def test_mmtf_scan_matches_plain(dev, lanes, encode, shape):
+    nb, units = shape
+    x = _mmtf_input(nb, units, lanes, lanes + units, dev)
+    k = mmtf_device.mmtf_scan(x, lanes=lanes, encode=encode)
+    p = mmtf_device.mmtf_scan_plain(x, lanes=lanes, encode=encode)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 256, mmtf_device.MAX_CHUNK])
+def test_mmtf_scan_chunk_lengths(dev, chunk):
+    """Every chunk length the kernel takes gives the plain version's
+    outputs and tables, lanes 16, 32 and 40 (two lane groups)."""
+    for lanes in (16, 32, 40):
+        x = _mmtf_input(2, 1500, lanes, chunk, dev)
+        for encode in (True, False):
+            k = mmtf_device._launch(x, lanes, encode, chunk)
+            p = mmtf_device.mmtf_scan_plain(x, lanes=lanes, encode=encode)
+            torch.cuda.synchronize()
+            assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+def test_compress_on_every_card(dev):
+    """Launch attributes are set per card (hrt1_encode's shared memory
+    above 48 KiB, both kernels' grid sizes): one process compresses and
+    decompresses the same data on every visible card in turn, and each
+    blob equals the native bytes."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    if native.lib() is None:
+        pytest.skip("native runtime unavailable")
+    raw = _dct(3 * 262144 + 1001, 7).tobytes()
+    want = api.compress(raw, "8 Bit", backend="native", device="cpu")
+    for i in [*range(cards), 0]:
+        card = torch.device("cuda", i)
+        api.reset_kernel_launch_counts()
+        assert api.compress(raw, "8 Bit", backend="kernel",
+                            device=card) == want, card
+        assert api.decompress(want, device=card) == raw, card
+        n = api.kernel_launch_counts()
+        assert n["hrt1_encode"] == 1 and n["hrt1_decode"] >= 1, (card, n)
 
 
 def test_mmtf_transform_on_card(dev):

@@ -7,6 +7,8 @@ the kernels' plain versions), and the outputs must be equal byte for byte
 (tolerance 0: integers).
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,6 +90,66 @@ def test_mmtf_scan_final_table_matches_jax(encode):
     assert table.dtype == torch.int32
 
 
+_CHUNK_UNITS = 37   # prime: chunks of 2 and 7 leave a partial last chunk
+
+
+def _chunk_input(kind: str, lanes: int) -> np.ndarray:
+    """[2, 37 * lanes] seeded bytes: skewed, all-distinct symbols per
+    (block, lane), or one symbol throughout."""
+    rng = np.random.default_rng(lanes)
+    shape = (2, _CHUNK_UNITS, lanes)
+    if kind == "skewed":
+        x = rng.integers(0, 256, shape, dtype=np.uint8)
+        x[:, ::2] %= 7
+    elif kind == "distinct":
+        x = np.stack([np.stack([rng.permutation(256)[:_CHUNK_UNITS]
+                                for _ in range(lanes)], 1)
+                      for _ in range(2)]).astype(np.uint8)
+    else:
+        x = np.full(shape, 200, np.uint8)
+    return x.reshape(2, -1)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_scan(kind: str, lanes: int, encode: bool):
+    """The JAX package's _mtf_scan per block: (out, final tables)."""
+    x = _chunk_input(kind, lanes)
+    res = [jmd._mtf_scan(jnp.asarray(b.reshape(-1, lanes)), lanes=lanes,
+                         encode=encode) for b in x]
+    return (np.stack([np.asarray(o).reshape(-1) for _, o in res]),
+            np.stack([np.asarray(t) for t, _ in res]))
+
+
+@pytest.mark.parametrize("lanes", [1, 16, 32])
+@pytest.mark.parametrize("encode", [True, False])
+@pytest.mark.parametrize("chunk", [1, 2, 7, _CHUNK_UNITS, _CHUNK_UNITS + 1])
+def test_mmtf_scan_chunked_plain_matches_jax(chunk, encode, lanes):
+    """The kernel's three-phase decomposition (identity passes, chunk
+    effects composed in order, fix-up) gives the JAX scan's outputs and
+    final tables for every chunk length, partial last chunks included."""
+    for kind in ("skewed", "distinct", "single"):
+        x = _chunk_input(kind, lanes)
+        out, table = md.mmtf_scan_chunked_plain(_t(x), lanes=lanes,
+                                                encode=encode, chunk=chunk)
+        jout, jtable = _jax_scan(kind, lanes, encode)
+        np.testing.assert_array_equal(out.numpy(), jout, err_msg=kind)
+        np.testing.assert_array_equal(table.numpy(), jtable, err_msg=kind)
+        assert out.dtype == torch.uint8 and table.dtype == torch.int32
+
+
+def test_mmtf_scan_chunked_plain_edges():
+    """No units gives identity tables; a chunk below 1 raises."""
+    out, table = md.mmtf_scan_chunked_plain(
+        torch.zeros((3, 0), dtype=torch.uint8), lanes=16, encode=True,
+        chunk=4)
+    assert out.shape == (3, 0)
+    assert torch.equal(table, torch.arange(256, dtype=torch.int32).expand(
+        3, 16, 256))
+    with pytest.raises(ValueError):
+        md.mmtf_scan_chunked_plain(torch.zeros((1, 16), dtype=torch.uint8),
+                                   lanes=16, encode=False, chunk=0)
+
+
 def test_mmtf_device_block_parallel():
     """Blocks are independent chains: batched == per-block == JAX."""
     rng = np.random.default_rng(7)
@@ -141,6 +203,9 @@ def test_mmtf_wrappers_reject_bad_input():
         md.mmtf_device(x.to(torch.int32), lanes=8)
     with pytest.raises(ValueError):
         md.mmtf_device(x.to("meta"), lanes=8)
+    for chunk in (0, md.MAX_CHUNK + 1):        # refused before a launch
+        with pytest.raises(ValueError, match="chunk"):
+            md._launch(x, 8, True, chunk)
     with pytest.raises(ValueError):
         md.bitmmtf_decode_device(x[:, :39], unit=2)
 
