@@ -14,8 +14,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    all-literal, whole-block run, ragged tail, zero-count commands mid-stream,
    min_count 1, runs across every 16 KiB tile edge with block_len ending
    mid-tile; 4 KiB, 20011 B, 20012 B, 64 KiB and 256 KiB blocks: B % 16 !=
-   0 and W % 4 != 0 take the unvectorised paths), hrt1_resolve_deep on the
-   deep sections of a real container, and hrt1_encode on synthetic blocks
+   0 and W % 4 != 0 take the unvectorised paths), hrt1_unpack_resolve on
+   the packed sections of the 64 MiB DCT corpus's deep and flat containers,
+   of the deep one with tampered stored escape counts (its bad flags set
+   and equal) and of random bytes with hostile n_cmds at every width and
+   several capacities, and hrt1_encode on synthetic blocks
    (the same edges plus Single, min_count 4; 4 KiB, 20011 B, 64 KiB,
    192 KiB and 256 KiB blocks); a 4 MiB one-block stream through both; a
    capacity of exactly the commands (padding by the tail tile), one less
@@ -31,8 +34,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    are set to 0 just before it and read just after.
 5. times: the device time of one call of each kernel (CUDA-graph
    replays, no host work) and its bound, beside CUDA-event medians of its
-   plain version, of the wrappers and of dispatch_packed on shipped
-   sections (deep and flat);
+   plain version and of the wrappers; dispatch_packed on shipped sections
+   (deep and flat) as device time, by CUDA events and with its plain
+   version, and its device operations per call (nodes of a captured CUDA
+   graph: at most 4);
    the wall time of one whole decompress (64 MiB DCT, and the 32-bit width
    row with the device re-interleave); the compress wall of the 64 MiB DCT
    corpus split into its stages.
@@ -71,7 +76,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 11. device fuzz lane: fuzz.run_device on the card over 20 inputs (10
     random, 10 iterative) x the 10 DEVICE_FUZZ_CODECS: round trips, 4
     mutated and 3 truncated containers each; no failure, and hrt1_decode
-    and hrt1_resolve_deep must have launched.
+    and hrt1_unpack_resolve must have launched.
 
 The line before the last is one JSON object with each kernel's route,
 source, replaced TPU kernel, launches, max |error|, times (the kernel's
@@ -87,7 +92,6 @@ from __future__ import annotations
 import itertools
 import json
 import pathlib
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -106,6 +110,8 @@ from hypersonic_rle_kit_tpu_torch.ops import (_kernels, decode_sup, device,
                                               unpack_device)
 from hypersonic_rle_kit_tpu_torch.parallel import container, dist
 from hypersonic_rle_kit_tpu_torch.utils import native
+from hypersonic_rle_kit_tpu_torch.utils.cuda_timing import (
+    cuda_ms, graph_ms, graph_ops)
 
 MIB = 1 << 20
 TILE = 16384            # the encode and decode kernels' tile bytes
@@ -115,9 +121,9 @@ KERNELS = {
     "hrt1_decode": dict(
         route="cuda", source="hypersonic_rle_kit_tpu_torch/csrc/hrt1_decode.cu",
         replaces="hypersonic_rle_kit_tpu/ops/decode_sup.py:631"),
-    "hrt1_resolve_deep": dict(
+    "hrt1_unpack_resolve": dict(
         route="cuda",
-        source="hypersonic_rle_kit_tpu_torch/csrc/hrt1_resolve.cu",
+        source="hypersonic_rle_kit_tpu_torch/csrc/hrt1_unpack_resolve.cu",
         replaces="hypersonic_rle_kit_tpu/ops/unpack_device.py:208"),
     "hrt1_encode": dict(
         route="cuda",
@@ -152,62 +158,6 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fns: dict, reps: int = 11, calls: int = 10) -> dict:
-    """Median CUDA-event ms per call of each callable.  A sample is
-    ``calls`` back-to-back calls between two events, so the host queues
-    launches ahead of the card; versions run in turns after a warm-up, so
-    the ones compared share the card's state."""
-    for fn in fns.values():
-        fn()
-    torch.cuda.synchronize()
-    times = {k: [] for k in fns}
-    for r in range(reps):
-        order = list(fns) if r % 2 == 0 else list(reversed(fns))
-        for k in order:
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            for _ in range(calls):
-                fns[k]()
-            e.record()
-            e.synchronize()
-            times[k].append(s.elapsed_time(e) / calls)
-    return {k: statistics.median(v) for k, v in times.items()}
-
-
-def graph_ms(fns: dict, reps: int = 7, calls: int = 10) -> dict:
-    """Device time of one call of each callable: ``calls`` calls captured
-    in a CUDA graph, the graph's replays timed with CUDA events (median of
-    ``reps``), so the host work of a kernel's wrapper, which can outlast
-    the kernel, is not counted.  The callables must not synchronise."""
-    out = {}
-    cur = torch.cuda.current_stream()
-    for k, fn in fns.items():
-        side = torch.cuda.Stream()
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            fn()                          # warm-up outside the capture
-        cur.wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(calls):
-                fn()
-        g.replay()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            g.replay()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e) / calls)
-        out[k] = statistics.median(times)
-        del g
-    return out
-
-
 def bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
     """The least time (ms) the card could take: bytes each read or written
     once over HBM, or the operations over the float32 rate, the larger."""
@@ -219,6 +169,26 @@ def bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts
                if isinstance(t, torch.Tensor))
+
+
+def unpack_bytes(args, kw, outs) -> int:
+    """Bytes hrt1_unpack_resolve must move: its arguments read once, but of
+    the overflow and miss rows (pack_for_device sizes them for ``capacity``
+    values, zero past each block's stored population) only the values the
+    stored populations hold, and its outputs written once."""
+    ovf = {"cnt_ovf_raw": ("n_cnt_ovf", kw.get("cnt_ovf_bits", 0)),
+           "ll_ovf_raw": ("n_ll_ovf", kw.get("ll_ovf_bits", 0)),
+           "miss_raw": ("n_miss", 8)}
+    n = nbytes(*args, *outs, *(v for k, v in kw.items() if k not in ovf))
+    for row, (pop, bits) in ovf.items():
+        if kw.get(row) is None:
+            continue
+        if kw.get(pop) is None:
+            n += nbytes(kw[row])
+        else:
+            vals = kw[pop].long().clamp(0, kw["capacity"])
+            n += int(((vals * bits + 7) // 8).sum())
+    return n
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -401,38 +371,94 @@ def check_extremes(dev) -> tuple[int, int]:
     return max(e_enc, e), e_dec
 
 
-def deep_planes(pk: dict, arrs: dict):
-    """The resolver's inputs at the main path's shapes."""
-    cap = pk["capacity"]
-    planes = [unpack_device._unpack_wide(arrs[k], bits, cap) for k, bits in (
-        ("cnts_raw", pk["cnt_bits"]), ("cnt_ovf_raw", pk["cnt_ovf_bits"]),
-        ("lls_raw", pk["lit_bits"]), ("ll_ovf_raw", pk["ll_ovf_bits"]),
-        ("lut_raw", 3))]
-    kw = dict(cap=cap, cnt_bits=pk["cnt_bits"] if pk["cnt_ovf_bits"] else 0,
-              lit_bits=pk["lit_bits"] if pk["ll_ovf_bits"] else 0,
-              min_count=pk["info"].min_count)
-    return (*planes, arrs["miss_raw"], arrs["dict7"], arrs["n_cmds"]), kw
-
-
 def plain_dispatch(pk: dict, arrs: dict):
     """dispatch_packed with each kernel replaced by its plain version."""
-    info = pk["info"]
-    cap = pk["capacity"]
-    if info.deep:
-        args, kw = deep_planes(pk, arrs)
-        count, lit_len, sym = unpack_device.resolve_deep_plain(*args, **kw)
-    else:
-        idx = torch.arange(cap, dtype=torch.int32, device=arrs["lits"].device)
-        nc = arrs["n_cmds"][:, None]
-        count = torch.where(idx < nc - 1, unpack_device._unpack_wide(
-            arrs["cnts_raw"], pk["cnt_bits"], cap) + info.min_count, 0)
-        lit_len = torch.where(idx < nc, unpack_device._unpack_wide(
-            arrs["lls_raw"], pk["lit_bits"], cap), 0)
-        sym = arrs["syms"]
+    args, kw = unpack_device.section_args(pk, arrs)
+    count, lit_len, sym, _ = unpack_device.unpack_resolve_plain(*args, **kw)
     return decode_sup.decode_columns_plain(
-        sym, count.to(torch.int32), lit_len.to(torch.int32), arrs["lits"],
+        arrs["syms"] if sym is None else sym, count, lit_len, arrs["lits"],
         arrs["n_cmds"], arrs["n_lits"], arrs["block_len"],
-        block_size=info.block_size, out_words=True)
+        block_size=pk["info"].block_size, out_words=True)
+
+
+def random_sections(widths, cap: int, seed: int, dev, nb: int = 5):
+    """unpack_resolve's arguments on random packed bytes of the given
+    (count, lit_len, count overflow, lit_len overflow) widths, rows 4 bytes
+    past their last value (off 16-byte boundaries), n_cmds -1, 0, 1, cap
+    and 2 cap, random stored escape counts."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def sec(w):
+        return t(rng.integers(0, 256, (nb, (w * cap + 7) // 8 + 4),
+                              dtype=np.uint8))
+
+    cb, lb, cob, lob = widths
+    args = (sec(cb), sec(lb),
+            t(np.resize(np.array([-1, 0, 1, cap, 2 * cap], np.int32), nb)))
+    kw = dict(cnt_ovf_raw=sec(cob), ll_ovf_raw=sec(lob), lut_raw=sec(3),
+              miss_raw=t(rng.integers(0, 256, (nb, cap), dtype=np.uint8)),
+              dict7=t(rng.integers(0, 256, (nb, 7), dtype=np.uint8)),
+              **{k: t(rng.integers(0, 40, nb, dtype=np.int32))
+                 for k in ("n_cnt_ovf", "n_ll_ovf", "n_miss")},
+              cnt_bits=cb, lit_bits=lb, cnt_ovf_bits=cob, ll_ovf_bits=lob,
+              capacity=cap, min_count=6)
+    return args, kw
+
+
+def unpack_err(args, kw) -> int:
+    """hrt1_unpack_resolve against its plain version: max |error| over
+    count, lit_len, sym and bad."""
+    k = unpack_device.unpack_resolve(*args, **kw)
+    p = unpack_device.unpack_resolve_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if [x is None for x in k] != [y is None for y in p]:
+        raise AssertionError("hrt1_unpack_resolve and its plain version "
+                             "return different outputs")
+    return max(max_abs_err(x, y) for x, y in zip(k, p) if x is not None)
+
+
+def check_unpack_cases(dev, packs: dict) -> int:
+    """hrt1_unpack_resolve == plain on the main path's sections (name ->
+    (pack, shipped sections)), a tampered copy of the deep ones and random
+    bytes with hostile n_cmds; returns the worst error."""
+    worst = 0
+    for name, (pk, arrs) in packs.items():
+        worst = max(worst, unpack_err(*unpack_device.section_args(pk, arrs)))
+        if worst:
+            raise AssertionError(f"hrt1_unpack_resolve != plain: {name} "
+                                 f"err={worst}")
+        log(f"  hrt1_unpack_resolve == plain on the {name} sections "
+            f"({pk['info'].n_blocks} blocks, cap {pk['capacity']})")
+    args, kw = unpack_device.section_args(*packs["dct64"])
+    kw = {**kw, **{k: kw[k].clone() for k in ("n_cnt_ovf", "n_ll_ovf",
+                                               "n_miss")}}
+    kw["n_cnt_ovf"][1] += 1
+    kw["n_ll_ovf"][100] -= 1
+    kw["n_miss"][200] += 1
+    err = unpack_err(args, kw)
+    bad = unpack_device.unpack_resolve(*args, **kw)[3].nonzero().flatten()
+    if err or bad.tolist() != [1, 100, 200]:
+        raise AssertionError(f"tampered dct64: err={err}, bad blocks "
+                             f"{bad.tolist()} (want [1, 100, 200])")
+    log("  hrt1_unpack_resolve == plain on the dct64 sections with tampered "
+        "stored counts; bad set on blocks [1, 100, 200] alone")
+    widths = ((0, 1, 7, 8), (1, 7, 8, 25), (7, 8, 25, 0), (8, 25, 0, 1),
+              (25, 0, 1, 7), (6, 4, 8, 8))
+    for cap in (8, 4096, 40000, 43776):
+        for w in widths:
+            args, kw = random_sections(w, cap, cap + sum(w), dev)
+            flat = {k: kw[k] for k in ("cnt_bits", "lit_bits", "capacity",
+                                       "min_count")}
+            err = max(unpack_err(args, kw), unpack_err(args, flat))
+            if err:
+                raise AssertionError(f"hrt1_unpack_resolve != plain on "
+                                     f"random bytes: widths {w} cap {cap} "
+                                     f"err={err}")
+    log(f"  hrt1_unpack_resolve == plain on random bytes, n_cmds -1, 0, 1, "
+        f"cap, 2 cap: widths {list(widths)}, caps 8, 4096, 40000, 43776, "
+        f"deep and flat")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -954,7 +980,7 @@ def fuzz_phase(dev, card: str) -> None:
     launches = api.kernel_launch_counts()
     if failures:
         raise AssertionError("device fuzz lane failed")
-    for k in ("hrt1_decode", "hrt1_resolve_deep"):
+    for k in ("hrt1_decode", "hrt1_unpack_resolve"):
         if launches[k] < 1:
             raise AssertionError(f"device fuzz lane never launched {k}")
     log(f"[{card}] device fuzz lane: {len(inputs)} inputs x {len(specs)} "
@@ -1010,17 +1036,16 @@ def main() -> int:
 
     # ---- 3. kernels vs plain ----
     err_k1 = check_decode_cases(dev)
-    pk = container.pack_for_device(blob)
-    arrs = unpack_device.ship_packed(pk, dev)
-    args, kw = deep_planes(pk, arrs)
-    rk = unpack_device._resolve_deep(*args, **kw)
-    rp = unpack_device.resolve_deep_plain(*args, **kw)
-    torch.cuda.synchronize()
-    err_k2 = max(max_abs_err(a, b) for a, b in zip(rk, rp))
-    if err_k2:
-        raise AssertionError(f"hrt1_resolve_deep != plain: err={err_k2}")
-    log(f"  hrt1_resolve_deep == plain on the DCT container's sections "
-        f"({pk['info'].n_blocks} blocks, cap {pk['capacity']})")
+    packs = {}
+    for name, b in (("dct64", blob), ("dct64_flat", flat)):
+        p = container.pack_for_device(b)
+        packs[name] = (p, unpack_device.ship_packed(p, dev))
+    err_k2 = check_unpack_cases(dev, packs)
+    pk, arrs = packs["dct64"]
+    args, kw = unpack_device.section_args(pk, arrs)
+    fargs, fkw = unpack_device.section_args(*packs["dct64_flat"])
+    rk = unpack_device.unpack_resolve(*args, **kw)
+    fk = unpack_device.unpack_resolve(*fargs, **fkw)
     dargs = (rk[2], rk[0], rk[1], arrs["lits"], arrs["n_cmds"],
              arrs["n_lits"], arrs["block_len"])
     yk = decode_sup.decode_columns_device(*dargs, block_size=B,
@@ -1069,13 +1094,13 @@ def main() -> int:
     main_s = time.perf_counter() - t0
     dl = api.kernel_launch_counts()
     launches.update(hrt1_decode=dl["hrt1_decode"],
-                    hrt1_resolve_deep=dl["hrt1_resolve_deep"])
+                    hrt1_unpack_resolve=dl["hrt1_unpack_resolve"])
     for name, (b, raw) in rows.items():
         if outs[name] != raw:
             raise AssertionError(f"decompress({name}) != input")
     log(f"main path, decompress: {len(rows)} round trips equal their input "
         f"({main_s:.2f} s of decompress); launches {dl}")
-    for k in ("hrt1_decode", "hrt1_resolve_deep", "hrt1_encode"):
+    for k in ("hrt1_decode", "hrt1_unpack_resolve", "hrt1_encode"):
         if launches[k] < 1:
             raise AssertionError(f"{k} never launched on the main path")
     del outs
@@ -1085,12 +1110,20 @@ def main() -> int:
     kt = graph_ms({
         "hrt1_decode": lambda: decode_sup.decode_columns_device(
             *dargs, block_size=B, out_words=True),
-        "hrt1_resolve_deep": lambda: unpack_device._resolve_deep(*args, **kw),
-        "hrt1_encode": lambda: encode_sup._launch(xd, tl, None, cap, 6)})
+        "hrt1_unpack_resolve": lambda: unpack_device.unpack_resolve(
+            *args, **kw),
+        "unpack_resolve flat": lambda: unpack_device.unpack_resolve(
+            *fargs, **fkw),
+        "hrt1_encode": lambda: encode_sup._launch(xd, tl, None, cap, 6),
+        **{f"dispatch {n}": (lambda pa=pa: unpack_device.dispatch_packed(
+            *pa, out_words=True)) for n, pa in packs.items()}})
     kt.update(cuda_ms({
         "decode_plain": lambda: decode_sup.decode_columns_plain(
             *dargs, block_size=B, out_words=True),
-        "resolve_plain": lambda: unpack_device.resolve_deep_plain(*args, **kw),
+        "unpack_plain": lambda: unpack_device.unpack_resolve_plain(
+            *args, **kw),
+        "unpack_plain flat": lambda: unpack_device.unpack_resolve_plain(
+            *fargs, **fkw),
         "encode_plain": lambda: device.encode_blocks(
             xd, tl, capacity=cap, min_count=6)}, reps=5, calls=4))
     ev = cuda_ms({
@@ -1107,14 +1140,18 @@ def main() -> int:
         # written once
         "hrt1_decode": bound(9 * n_cmds_sum + n_lits_sum + 8 * nb_
                              + 4 * nb_ * (B // 4), nb_ * B),
-        "hrt1_resolve_deep": bound(nbytes(*args, *rk), rk[0].numel()),
+        # the packed values the blocks hold read once; count, lit_len, sym,
+        # bad written once
+        "hrt1_unpack_resolve": bound(unpack_bytes(args, kw, rk)),
+        "unpack_resolve flat": bound(unpack_bytes(fargs, fkw, fk)),
         # x read once; literal rows and fixed-capacity columns written once
         "hrt1_encode": bound(2 * nb_ * B + 9 * nb_ * cap + 12 * nb_,
                              nb_ * B),
     }
     gb = len(dct) / 1e9
     for k, p in (("hrt1_decode", "decode_plain"),
-                 ("hrt1_resolve_deep", "resolve_plain"),
+                 ("hrt1_unpack_resolve", "unpack_plain"),
+                 ("unpack_resolve flat", "unpack_plain flat"),
                  ("hrt1_encode", "encode_plain")):
         log(f"[{card}] {k}: device {kt[k]:.4f} ms ({gb / kt[k] * 1e3:.2f} "
             f"GB/s of {len(dct) >> 20} MiB DCT, {nb_} blocks), bound "
@@ -1124,17 +1161,22 @@ def main() -> int:
         f"{ev['hrt1_decode']:.4f} ms, hrt1_encode launch "
         f"{ev['hrt1_encode']:.4f} ms, checked wrapper "
         f"{ev['encode_checked']:.4f} ms")
-    for name in ("dct64", "dct64_flat"):
-        b, raw = rows[name]
-        p = container.pack_for_device(b)
-        a = unpack_device.ship_packed(p, dev)
+    for name, pa in packs.items():
+        ops = graph_ops(lambda: unpack_device.dispatch_packed(
+            *pa, out_words=True))
+        if ops > 4:
+            raise AssertionError(f"dispatch_packed {name}: {ops} device "
+                                 f"operations a call, want at most 4")
         dt = cuda_ms({
             "kernels": lambda: unpack_device.dispatch_packed(
-                p, a, out_words=True),
-            "plain": lambda: plain_dispatch(p, a)})
-        log(f"[{card}] dispatch_packed {name}: kernels {dt['kernels']:.4f} "
-            f"ms = {len(raw) / 1e6 / dt['kernels']:.2f} GB/s, plain "
-            f"{dt['plain']:.4f} ms = {len(raw) / 1e6 / dt['plain']:.2f} GB/s")
+                *pa, out_words=True),
+            "plain": lambda: plain_dispatch(*pa)})
+        mb = len(dct) / 1e6
+        log(f"[{card}] dispatch_packed {name}: {ops:g} device operations a "
+            f"call; device {kt[f'dispatch {name}']:.4f} ms = "
+            f"{mb / kt[f'dispatch {name}']:.2f} GB/s; CUDA events "
+            f"{dt['kernels']:.4f} ms = {mb / dt['kernels']:.2f} GB/s; plain "
+            f"{dt['plain']:.4f} ms = {mb / dt['plain']:.2f} GB/s")
     for name in ("dct64", "dct16_w32"):
         b, raw = rows[name]
         w = best_wall(lambda: api.decompress(b, device=dev))
@@ -1151,10 +1193,10 @@ def main() -> int:
         + f" ms; api.compress kernel {wk * 1e3:.1f} ms, native "
         f"{wn * 1e3:.1f} ms")
 
-    errs = {"hrt1_decode": err_k1, "hrt1_resolve_deep": err_k2,
+    errs = {"hrt1_decode": err_k1, "hrt1_unpack_resolve": err_k2,
             "hrt1_encode": err_k3}
     times = {k: (kt[k], kt[p], None) for k, p in (
-        ("hrt1_decode", "decode_plain"), ("hrt1_resolve_deep", "resolve_plain"),
+        ("hrt1_decode", "decode_plain"), ("hrt1_unpack_resolve", "unpack_plain"),
         ("hrt1_encode", "encode_plain"))}
 
     # ---- 6-9. K4, reference streams, Low Entropy / rle8m, MMTF ----

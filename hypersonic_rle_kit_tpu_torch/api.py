@@ -8,8 +8,8 @@ Port of hypersonic_rle_kit_tpu/api.py; both directions run on the device:
   come back through pinned buffers to ``container.serialize_blocks``.
 - ``decompress(buf, device=...)``: the host slices the container into
   payload sections (container.pack_for_device), ships them in two
-  copies, and the device bit-unpacks, resolves (hrt1_resolve_deep, deep
-  layout), decodes (hrt1_decode) and re-interleaves the widths.
+  copies, and the device bit-unpacks and resolves (hrt1_unpack_resolve),
+  decodes (hrt1_decode) and re-interleaves the widths.
 
 There is no fallback: a kernel error or ``torch.cuda.OutOfMemoryError``
 propagates, and ``kernel_launch_counts()`` shows which kernels ran.

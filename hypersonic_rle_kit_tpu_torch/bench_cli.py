@@ -11,7 +11,7 @@ here), plus ``--device`` ('cuda' or 'cpu', required): the reference-format rows
 run the shared host codecs, and ``--hrt1`` adds HRT1 container rows
 through the port, ``api.compress(backend="kernel", device=D)`` (the
 hrt1_encode kernel on CUDA) and ``api.decompress(device=D)`` (hrt1_decode,
-hrt1_resolve_deep).
+hrt1_unpack_resolve).
 """
 
 from __future__ import annotations

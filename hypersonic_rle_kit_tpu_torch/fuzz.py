@@ -7,7 +7,7 @@ seeds give the same inputs).  Each input is compressed with each codec and decom
 device; then the container is mutated (random bit flips) and truncated.
 A mutated container must raise ``ContainerError`` or decode without
 another exception, and a truncated one must raise ``ContainerError``: on
-CUDA this holds the kernels (hrt1_resolve_deep, hrt1_decode) to hostile
+CUDA this holds the kernels (hrt1_unpack_resolve, hrt1_decode) to hostile
 input, the analog of the reference's buffer-scramble trap
 (rle_fuzz.c:629-636).
 

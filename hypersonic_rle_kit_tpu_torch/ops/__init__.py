@@ -6,7 +6,8 @@ Modules (each mirrors the JAX module of the same name, where it has one):
     encode_sup          bytes -> planar columns (kernel hrt1_encode)
     decode_sup          planar columns -> bytes (kernel hrt1_decode), width
                         re-interleave in the words form
-    unpack_device       payload sections -> columns (kernel hrt1_resolve_deep)
+    unpack_device       payload sections -> columns (kernel
+                        hrt1_unpack_resolve)
     ref_device          reference-format streams -> planar -> hrt1_decode
     low_entropy_device  Low Entropy / rle8m -> planar -> hrt1_decode
     mmtf_device         MMTF 128/256 (kernel mmtf_scan) and Bit-MMTF

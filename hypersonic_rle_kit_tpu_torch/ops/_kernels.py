@@ -28,8 +28,8 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "torch_kernels"
 # library -> its sources; each library exports <library>_error_string
-LIBRARIES = {"hrt1": ("hrt1_decode.cu", "hrt1_resolve.cu", "hrt1_encode.cu",
-                      "mmtf.cu"),
+LIBRARIES = {"hrt1": ("hrt1_decode.cu", "hrt1_unpack_resolve.cu",
+                      "hrt1_encode.cu", "mmtf.cu"),
              "micro_word": ("micro_word.cu",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -37,8 +37,7 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 # entry point -> (library, argtypes); each returns a cudaError_t as int
 _ENTRY = {
     "hrt1_decode": ("hrt1", [_P] * 9 + [_I64, _I32, _I32, _I32, _I32, _P]),
-    "hrt1_resolve_deep": ("hrt1", [_P] * 11 + [_I64, _I32, _I32, _I32, _I32,
-                                               _P]),
+    "hrt1_unpack_resolve": ("hrt1", [_P] * 15 + [_I64] + [_I32] * 11 + [_P]),
     "hrt1_encode": ("hrt1", [_P] * 10 + [_I64, _I32, _I32, _I32, _I32, _P]),
     "mmtf_scan": ("hrt1", [_P] * 4 + [_I64, _I64, _I32, _I32, _I32, _P]),
     "word_slice_sum": ("micro_word", [_P, _P, _I64, _I32, _P]),

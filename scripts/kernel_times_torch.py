@@ -15,19 +15,25 @@ change compare within one call (pass ``PARENT . . PARENT``).  Per root:
   on the 256 blocks;
 - ``hrt1_decode``: ``decode_columns_device`` on the deep container's
   resolved columns (words out);
+- ``k2_deep`` / ``k2_flat``: the column-prep kernel on the shipped
+  sections of the deep + litdict and the flat container:
+  ``unpack_resolve`` (hrt1_unpack_resolve) where the root has it, else
+  the resolver alone (``_resolve_deep`` on planes unpacked beforehand;
+  such a root has no flat kernel);
 - ``dispatch_deep`` / ``dispatch_flat``: ``unpack_device.dispatch_packed``
-  on the shipped sections of the deep + litdict and the flat container;
+  on the shipped sections of those containers, with its device operations
+  per call (``ops_per_call``: the nodes of a captured CUDA graph);
 - ``le1_decode``: ``decode_columns_device`` on the one-block LE columns;
 - ``mmtf_{dct,rand}_{enc,dec}``: ``mmtf_device.mmtf_scan`` (16 lanes, one
   block) on 1 MiB of the DCT corpus and 1 MiB of ``default_rng(0)``
   uniform bytes, encoding them and decoding their MMTF 128 encoding;
 
-the kernels as the device time of one call (10 calls captured in a CUDA
-graph, its replays timed with CUDA events: no host work), and all but the
-MMTF scans as the CUDA-event median of 11 samples of 10 back-to-back calls
-(host work of the wrappers included), after a warm-up; each kernel output
-held against its plain version (max |error|), the MMTF scans against the
-host format (``formats.mmtf``).  Prints one JSON line per root, then the
+the kernels and the dispatches as the device time of one call (10 calls
+captured in a CUDA graph, its replays timed with CUDA events: no host
+work), and all but the MMTF scans as the CUDA-event median of 11 samples
+of 10 back-to-back calls (host work of the wrappers included), after a
+warm-up; each kernel output held against its plain version (max |error|),
+the MMTF scans against the host format (``formats.mmtf``).  Prints one JSON line per root, then the
 card's name and power limit.
 
 ``--mmtf-chunks C ...`` also times ``mmtf_scan``'s kernel at each chunk
@@ -43,9 +49,9 @@ times at the wrapper's own chunk length.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import pathlib
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -82,54 +88,15 @@ def make_inputs(d: pathlib.Path) -> None:
         (d / f"mmtf_{name}.enc").write_bytes(mmtf._mmtf(data, 16, encode=True))
 
 
-def cuda_ms(fns: dict, reps: int = 11, calls: int = 10) -> dict:
-    import torch
-    for fn in fns.values():
-        fn()
-    torch.cuda.synchronize()
-    times = {k: [] for k in fns}
-    for r in range(reps):
-        for k in (list(fns) if r % 2 == 0 else list(reversed(fns))):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            for _ in range(calls):
-                fns[k]()
-            e.record()
-            e.synchronize()
-            times[k].append(s.elapsed_time(e) / calls)
-    return {k: statistics.median(v) for k, v in times.items()}
-
-
-def graph_ms(fns: dict, reps: int = 7, calls: int = 10) -> dict:
-    """Device time of one call: ``calls`` calls captured in a CUDA graph,
-    its replays timed with CUDA events (median), host work not counted."""
-    import torch
-    out = {}
-    cur = torch.cuda.current_stream()
-    for k, fn in fns.items():
-        side = torch.cuda.Stream()
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            fn()
-        cur.wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(calls):
-                fn()
-        g.replay()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            g.replay()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e) / calls)
-        out[k] = statistics.median(times)
-    return out
+def _timing():
+    """This checkout's CUDA timing helpers (``utils/cuda_timing.py``),
+    loaded by path: the package a root's interpreter imports is that
+    root's, which may predate them."""
+    path = ROOT / "hypersonic_rle_kit_tpu_torch" / "utils" / "cuda_timing.py"
+    spec = importlib.util.spec_from_file_location("cuda_timing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def time_root(root: str, d: pathlib.Path, chunks: list[int]) -> dict:
@@ -169,8 +136,25 @@ def time_root(root: str, d: pathlib.Path, chunks: list[int]) -> dict:
             (d / f"dct64_{name}.hrt1").read_bytes())
         packs[name] = (pk, unpack_device.ship_packed(pk, dev))
     pk, arrs = packs["deep"]
-    planes, kw = _deep_args(pk, arrs, unpack_device)
-    cnt, ll, sym = unpack_device._resolve_deep(*planes, **kw)
+    if hasattr(unpack_device, "unpack_resolve"):
+        args, kw = unpack_device.section_args(*packs["deep"])
+        fargs, fkw = unpack_device.section_args(*packs["flat"])
+        cnt, ll, sym, _ = unpack_device.unpack_resolve(*args, **kw)
+        errs["k2_deep"] = max(err(a, b) for a, b in zip(
+            unpack_device.unpack_resolve(*args, **kw),
+            unpack_device.unpack_resolve_plain(*args, **kw)))
+        errs["k2_flat"] = max(err(a, b) for a, b in zip(
+            unpack_device.unpack_resolve(*fargs, **fkw)[:2],
+            unpack_device.unpack_resolve_plain(*fargs, **fkw)[:2]))
+        k2 = {"k2_deep": lambda: unpack_device.unpack_resolve(*args, **kw),
+              "k2_flat": lambda: unpack_device.unpack_resolve(*fargs, **fkw)}
+    else:   # a root from before hrt1_unpack_resolve: the resolver alone
+        planes, kw = _deep_args(pk, arrs, unpack_device)
+        cnt, ll, sym = unpack_device._resolve_deep(*planes, **kw)
+        errs["k2_deep"] = max(err(a, b) for a, b in zip(
+            unpack_device._resolve_deep(*planes, **kw),
+            unpack_device.resolve_deep_plain(*planes, **kw)))
+        k2 = {"k2_deep": lambda: unpack_device._resolve_deep(*planes, **kw)}
     dargs = (sym, cnt, ll, arrs["lits"], arrs["n_cmds"], arrs["n_lits"],
              arrs["block_len"])
     errs["hrt1_decode"] = err(
@@ -183,6 +167,7 @@ def time_root(root: str, d: pathlib.Path, chunks: list[int]) -> dict:
         decode_sup.decode_columns_device(*le, block_size=le_B),
         decode_sup.decode_columns_plain(*le, block_size=le_B))
     kernels = {
+        **k2,
         "hrt1_encode": lambda: encode_sup._launch(xd, tl, None, cap, 6),
         "hrt1_decode": lambda: decode_sup.decode_columns_device(
             *dargs, block_size=B, out_words=True),
@@ -212,13 +197,17 @@ def time_root(root: str, d: pathlib.Path, chunks: list[int]) -> dict:
         "dispatch_flat": lambda: unpack_device.dispatch_packed(
             *packs["flat"], out_words=True),
     }
-    res = dict(root=root, device_ms=graph_ms({**kernels, **scans}),
-               event_ms=cuda_ms({**kernels, **dispatch}),
+    timing = _timing()
+    res = dict(root=root,
+               device_ms=timing.graph_ms({**kernels, **scans, **dispatch}),
+               event_ms=timing.cuda_ms({**kernels, **dispatch}),
+               ops_per_call={k: timing.graph_ops(fn)
+                             for k, fn in dispatch.items()},
                max_abs_err=errs,
                shapes=dict(encode=list(xd.shape), le_block=le_B,
                            le_cmds=int(le_cols[4][0]), mmtf=[1, MIB]))
     if sweep:
-        t = graph_ms(sweep)
+        t = timing.graph_ms(sweep)
         res["mmtf_chunk_ms"] = {f"{k} C={c}": v for (k, c), v in t.items()}
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         res["mmtf_fit"] = {k: _fit(chunks, [t[k, c] for c in chunks],
@@ -244,6 +233,7 @@ def _fit(chunks: list[int], ms: list[float], units: int, sms: int,
 
 
 def _deep_args(pk, arrs, unpack_device):
+    """The resolver's planes, for a root from before hrt1_unpack_resolve."""
     cap = pk["capacity"]
     planes = [unpack_device._unpack_wide(arrs[k], bits, cap) for k, bits in (
         ("cnts_raw", pk["cnt_bits"]), ("cnt_ovf_raw", pk["cnt_ovf_bits"]),

@@ -156,23 +156,121 @@ def _deep_blob(seed):
                         device="cpu"), raw
 
 
-def test_resolve_kernel_matches_plain(dev):
-    blob, _ = _deep_blob(1)
+def _dct_blob(seed):
+    raw = _dct(300_000, seed).tobytes()
+    return api.compress(raw, block_size=65536, backend="host",
+                        device="cpu"), raw
+
+
+def _flat_blob(seed):
+    raw = np.frombuffer(_deep_blob(seed)[1], np.uint8)
+    B = 65536
+    x, lens = api._to_blocks(raw, B)
+    cap = planar.capacity_for(B, 6)
+    outs = [planar.host_encode_block(x[b, :lens[b]], cap, B, 6)
+            for b in range(x.shape[0])]
+    cols = ([np.stack([o[i] for o in outs]) for i in range(4)]
+            + [np.array([o[i] for o in outs], np.int32) for i in (4, 5)])
+    return container.serialize_blocks(0, raw.size, B, 6, *cols,
+                                      deep=False), raw.tobytes()
+
+
+def _pack_case(kind):
+    blob = {"deep": lambda: _deep_blob(1)[0],
+            "deep_litdict": lambda: _dct_blob(3)[0],
+            "flat": lambda: _flat_blob(1)[0],
+            "tampered": lambda: _deep_blob(4)[0]}[kind]()
     pk = container.pack_for_device(blob)
-    assert pk["info"].deep
-    a = unpack_device.ship_packed(pk, dev)
-    cap = pk["capacity"]
-    planes = [unpack_device._unpack_wide(a[k], bits, cap) for k, bits in (
-        ("cnts_raw", pk["cnt_bits"]), ("cnt_ovf_raw", pk["cnt_ovf_bits"]),
-        ("lls_raw", pk["lit_bits"]), ("ll_ovf_raw", pk["ll_ovf_bits"]),
-        ("lut_raw", 3))]
-    kw = dict(cap=cap, cnt_bits=pk["cnt_bits"], lit_bits=pk["lit_bits"],
-              min_count=pk["info"].min_count)
-    args = (*planes, a["miss_raw"], a["dict7"], a["n_cmds"])
-    k = unpack_device._resolve_deep(*args, **kw)
-    p = unpack_device.resolve_deep_plain(*args, **kw)
+    assert pk["info"].deep == (kind != "flat")
+    if kind == "tampered":
+        pk["n_cnt_ovf"][0] += 1
+        pk["n_miss"][-1] += 2
+    return pk
+
+
+def _same(k, p):
     for x, y in zip(k, p):
-        assert torch.equal(x, y)
+        assert (x is None and y is None) or (
+            x.dtype == y.dtype and torch.equal(x, y))
+
+
+@pytest.mark.parametrize("kind", ["deep", "deep_litdict", "flat",
+                                  "tampered"])
+def test_resolve_kernel_matches_plain(dev, kind):
+    """hrt1_unpack_resolve == its plain version on shipped sections; the
+    tampered container's bad flags are set and equal."""
+    pk = _pack_case(kind)
+    args, kw = unpack_device.section_args(pk, unpack_device.ship_packed(pk, dev))
+    k = unpack_device.unpack_resolve(*args, **kw)
+    p = unpack_device.unpack_resolve_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _same(k, p)
+    if kind == "tampered":
+        assert k[3][0] == 1 and k[3][-1] == 1
+
+
+# (cnt_bits, lit_bits, cnt_ovf_bits, ll_ovf_bits): each of 0, 1, 7, 8, 25
+UNPACK_WIDTHS = [(0, 1, 7, 8), (1, 7, 8, 25), (7, 8, 25, 0), (8, 25, 0, 1),
+                 (25, 0, 1, 7), (6, 4, 8, 8)]
+
+
+def _random_sections(widths, cap, seed, dev, nb=6, pad=4):
+    """Random packed bytes of each width (rows ``pad`` bytes past the last
+    value, so rows sit on no 16-byte boundary), hostile n_cmds -1, 0, 1,
+    mid, cap, 2 cap, random stored populations."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def sec(w):
+        return t(rng.integers(0, 256, (nb, (w * cap + 7) // 8 + pad),
+                              dtype=np.uint8))
+
+    cb, lb, cob, lob = widths
+    n_cmds = np.resize(np.array([-1, 0, 1, cap // 2 + 3, cap, 2 * cap],
+                                np.int32), nb)
+    args = (sec(cb), sec(lb), t(n_cmds))
+    kw = dict(cnt_ovf_raw=sec(cob), ll_ovf_raw=sec(lob), lut_raw=sec(3),
+              miss_raw=t(rng.integers(0, 256, (nb, cap), dtype=np.uint8)),
+              dict7=t(rng.integers(0, 256, (nb, 7), dtype=np.uint8)),
+              **{k: t(rng.integers(0, 40, nb, dtype=np.int32))
+                 for k in ("n_cnt_ovf", "n_ll_ovf", "n_miss")},
+              cnt_bits=cb, lit_bits=lb, cnt_ovf_bits=cob, ll_ovf_bits=lob,
+              capacity=cap, min_count=6)
+    return args, kw
+
+
+@pytest.mark.parametrize("cap", [8, 4096, 43776, 5000 * 8])
+@pytest.mark.parametrize("widths", UNPACK_WIDTHS, ids=str)
+def test_unpack_resolve_random_sections(dev, widths, cap):
+    """Every width, capacities of one thread's 8 entries, one sweep and
+    several, unaligned rows: kernel == plain, deep and flat."""
+    used = (widths[0] * cap + 7) // 8
+    # rows off and on 16-byte boundaries (the count section's)
+    for pad in (4, -(-(used + 4) // 16) * 16 - used):
+        args, kw = _random_sections(widths, cap, cap + pad, dev, pad=pad)
+        _same(unpack_device.unpack_resolve(*args, **kw),
+              unpack_device.unpack_resolve_plain(*args, **kw))
+        flat = {k: kw[k] for k in ("cnt_bits", "lit_bits", "capacity",
+                                   "min_count")}
+        _same(unpack_device.unpack_resolve(*args, **flat),
+              unpack_device.unpack_resolve_plain(*args, **flat))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["deep", "flat"])
+def test_dispatch_packed_four_device_ops(dev, kind):
+    """A dispatch is hrt1_unpack_resolve, the zeroing of hrt1_decode's
+    look-back state and hrt1_decode's two grids: at most 4 nodes a call in
+    a captured CUDA graph (utils.cuda_timing.graph_ops)."""
+    from hypersonic_rle_kit_tpu_torch.utils.cuda_timing import graph_ops
+    pk = _pack_case(kind)
+    arrs = unpack_device.ship_packed(pk, dev)
+    api.reset_kernel_launch_counts()
+    ops = graph_ops(lambda: unpack_device.dispatch_packed(
+        pk, arrs, out_words=True))
+    assert ops <= 4, ops
+    n = api.kernel_launch_counts()
+    assert n["hrt1_unpack_resolve"] == n["hrt1_decode"] == 4
 
 
 def test_decompress_on_card_counts_launches(dev):
@@ -180,14 +278,15 @@ def test_decompress_on_card_counts_launches(dev):
     api.reset_kernel_launch_counts()
     assert api.decompress(blob, device=dev) == raw
     n = api.kernel_launch_counts()
-    assert n["hrt1_decode"] >= 1 and n["hrt1_resolve_deep"] >= 1
+    assert n["hrt1_decode"] >= 1 and n["hrt1_unpack_resolve"] >= 1
 
 
 def test_kernels_survive_hostile_columns(dev):
     """Columns no container would hold (negative and huge fields, n_cmds
     and block_len out of range, dense escapes) must not fault; the decode
-    stays zero past each block's length and the resolver equals its plain
-    version."""
+    stays zero past each block's length, and hrt1_unpack_resolve on random
+    packed bytes with n_cmds -1, 0, 1, cap, 2 cap equals its plain
+    version, bad flags included."""
     rng = np.random.default_rng(17)
     nb, C, B = 6, 384, 8192
     big = np.iinfo(np.int32)
@@ -206,17 +305,12 @@ def test_kernels_survive_hostile_columns(dev):
         assert not out[b, bl:].any()
 
     cap = 256
-    planes = [rng.integers(0, 4, (nb, cap), dtype=np.int32) for _ in range(5)]
-    planes[4] = rng.integers(0, 8, (nb, cap), dtype=np.int32)
-    args = [*map(t, planes), t(rng.integers(0, 256, (nb, cap), np.uint8)),
-            t(rng.integers(0, 256, (nb, 7), np.uint8)),
-            t(np.array([-1, 0, 1, cap, 2 * cap, 77], np.int32))]
-    kw = dict(cap=cap, cnt_bits=2, lit_bits=2, min_count=6)
-    k = unpack_device._resolve_deep(*args, **kw)
-    p = unpack_device.resolve_deep_plain(*args, **kw)
+    args, kw = _random_sections((2, 2, 8, 3), cap, 17, dev, nb=5)
+    args = (*args[:2], t(np.array([-1, 0, 1, cap, 2 * cap], np.int32)))
+    k = unpack_device.unpack_resolve(*args, **kw)
+    p = unpack_device.unpack_resolve_plain(*args, **kw)
     torch.cuda.synchronize()
-    for x, y in zip(k, p):
-        assert torch.equal(x, y)
+    _same(k, p)
 
 
 def test_kernel_rejects_bad_input(dev):

@@ -260,7 +260,7 @@ def test_resolve_plain_matches_jax(escapes):
         **kw)
     a = unpack_device.ship_packed(pk, "cpu")
     tplanes = [unpack_device._unpack_wide(a[k], pk[w], cap) for k, w in keys]
-    got = unpack_device._resolve_deep(
+    got = unpack_device.resolve_deep_plain(
         *tplanes, unpack_device._unpack_wide(a["lut_raw"], 3, cap),
         a["miss_raw"], a["dict7"], a["n_cmds"], **kw)
     assert got[2].dtype == torch.uint8
