@@ -77,6 +77,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     random, 10 iterative) x the 10 DEVICE_FUZZ_CODECS: round trips, 4
     mutated and 3 truncated containers each; no failure, and hrt1_decode
     and hrt1_unpack_resolve must have launched.
+12. bench: the port's harness (hypersonic_rle_kit_tpu_torch/bench.py) in
+    this process at its defaults (64 MiB DCT corpus, 256 KiB blocks, 8
+    iterations): every row checks its round trip and raises on a
+    mismatch; ok must be true and every *_gbps > 0.  Its JSON object is
+    printed on a line of its own before the kernels line.
 
 The line before the last is one JSON object with each kernel's route,
 source, replaced TPU kernel, launches, max |error|, times (the kernel's
@@ -92,7 +97,6 @@ from __future__ import annotations
 import itertools
 import json
 import pathlib
-import subprocess
 import sys
 import tempfile
 import time
@@ -100,8 +104,10 @@ import time
 import numpy as np
 import torch
 
-from hypersonic_rle_kit_tpu_torch import (api, datasets, fuzz, graft_entry,
-                                          spec)
+from hypersonic_rle_kit_tpu_torch import (api, bench, datasets, fuzz,
+                                          graft_entry, spec)
+from hypersonic_rle_kit_tpu_torch.bench import (best_wall, card_line,
+                                                compress_split)
 from hypersonic_rle_kit_tpu_torch.formats import low_entropy, mmtf, registry
 from hypersonic_rle_kit_tpu_torch.ops import (_kernels, decode_sup, device,
                                               encode_sup, low_entropy_device,
@@ -148,14 +154,6 @@ REF_MIB = 16            # host encoders take 1-5 s per codec at this size
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
@@ -462,47 +460,6 @@ def check_unpack_cases(dev, packs: dict) -> int:
 
 
 # ---------------------------------------------------------------------------
-
-def best_wall(fn, reps: int = 3) -> float:
-    """Best-of-``reps`` host seconds of ``fn`` closed by a synchronize."""
-    walls = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    return min(walls)
-
-
-def compress_split(raw: bytes, dev, reps: int = 3) -> dict:
-    """api.compress(backend="kernel") of an "8 Bit" stream in its stages,
-    each closed by a synchronize; best of ``reps`` per stage (ms)."""
-    B = container.DEFAULT_BLOCK_SIZE
-    cap = planar.capacity_for(B, 6)
-    best = None
-    for _ in range(reps):
-        t = [time.perf_counter()]
-        x, lens = api._to_blocks(np.frombuffer(raw, np.uint8), B)
-        xd, tl = transfer.to_device(x, dev), transfer.to_device(lens, dev)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        cols = encode_sup.encode_blocks_kernel(xd, tl, capacity=cap,
-                                               min_count=6)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        hc = api._columns_to_host(*cols)
-        t.append(time.perf_counter())
-        blob = container.serialize_blocks(0, len(raw), B, 6, *hc)
-        t.append(time.perf_counter())
-        ms = np.diff(t) * 1e3
-        best = ms if best is None else np.minimum(best, ms)
-    if blob != api.compress(raw, "8 Bit", backend="native", device="cpu"):
-        raise AssertionError("compress stages != native compress")
-    return dict(zip(("to_blocks_h2d", "encode", "d2h", "serialize"),
-                    best.tolist()))
-
-
-# ---------------------------------------------------------------------------
 # phases 6-9: K4, reference streams, Low Entropy / rle8m, MMTF
 # ---------------------------------------------------------------------------
 
@@ -642,7 +599,7 @@ def ref_phase(dct: bytes, dev, card: str) -> int:
             + " ms; hrt1_decode == plain on these columns")
     raw, codec, blob = rows["dct32_8bit"]
     w = best_wall(lambda: ref_device.decompress_ref_device(blob, codec,
-                                                           device=dev))
+                                                           device=dev), dev)
     log(f"[{card}] ref stream wall (32 MiB DCT, 8 Bit): whole call "
         f"{w * 1e3:.1f} ms best of 3 = {len(raw) / 1e9 / w:.3f} GB/s")
     return worst
@@ -675,7 +632,7 @@ def le_phase(dct: bytes, dev, card: str) -> int:
         def walk(blob=blob, walk_fn=walk_fn):
             cols, B, sizes = walk_fn(blob)
             return cols, B, lambda y: low_entropy_device.join(y, sizes)
-        w = best_wall(lambda: fn(blob, device=dev))
+        w = best_wall(lambda: fn(blob, device=dev), dev)
         sp, out, err, cols = decode_split(walk, dev, "join")
         if out != raw or err:
             raise AssertionError(f"LE stages ({name}): output equal "
@@ -989,6 +946,20 @@ def fuzz_phase(dev, card: str) -> None:
         f"{launches}")
 
 
+def bench_phase(card: str) -> None:
+    """The port's bench in this process at its defaults; prints its JSON
+    object on a line of its own."""
+    t0 = time.perf_counter()
+    line = bench.run(bench.parse_args([]))
+    gbps = {k: v for k, v in line.items() if k.endswith("_gbps")}
+    if line["ok"] is not True or not all(v > 0 for v in gbps.values()):
+        raise AssertionError(f"bench: ok {line['ok']}, rates {gbps}")
+    log(f"[{card}] bench (64 MiB DCT, 256 KiB blocks): {len(gbps)} rates "
+        f"> 0, headline {line['value']:.2f} GB/s, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    print(json.dumps(line), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1179,15 +1150,15 @@ def main() -> int:
             f"{dt['plain']:.4f} ms = {mb / dt['plain']:.2f} GB/s")
     for name in ("dct64", "dct16_w32"):
         b, raw = rows[name]
-        w = best_wall(lambda: api.decompress(b, device=dev))
+        w = best_wall(lambda: api.decompress(b, device=dev), dev)
         log(f"[{card}] decompress wall ({name}, host pack + copies + "
             f"kernels + device re-interleave + D2H): {w * 1e3:.1f} ms best "
             f"of 3 = {len(raw) / 1e9 / w:.3f} GB/s")
     split = compress_split(dct, dev)
     wk = best_wall(lambda: api.compress(dct, "8 Bit", backend="kernel",
-                                        device=dev))
+                                        device=dev), dev)
     wn = best_wall(lambda: api.compress(dct, "8 Bit", backend="native",
-                                        device="cpu"))
+                                        device="cpu"), dev)
     log(f"[{card}] compress wall (64 MiB DCT, 8 Bit), best of 3: stages "
         + " | ".join(f"{k} {v:.2f}" for k, v in split.items())
         + f" ms; api.compress kernel {wk * 1e3:.1f} ms, native "
@@ -1220,6 +1191,9 @@ def main() -> int:
                            wk).items():
         errs[k] = max(errs[k], e)
     fuzz_phase(dev, card)
+
+    # ---- 12. the port's bench at its defaults ----
+    bench_phase(card)
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

@@ -232,9 +232,10 @@ def _to_host_bytes(y: torch.Tensor, words: bool) -> np.ndarray:
     return decode_sup.words_to_bytes(yh) if words else yh
 
 
-def decompress(buf, *, device) -> bytes:
-    """Decompress an HRT1 container on ``device`` ('cuda', 'cuda:N' or
-    'cpu'; CUDA runs the Hopper kernels, CPU their plain versions).
+def decompress(buf, *, device="cuda") -> bytes:
+    """Decompress an HRT1 container on ``device`` ('cuda', the default,
+    'cuda:N' or 'cpu'; CUDA runs the Hopper kernels, CPU their plain
+    versions).
 
     Raises ContainerError on a malformed or hostile container."""
     buf = bytes(buf)

@@ -138,10 +138,10 @@ def _decode(walked, device) -> bytes:
     return out.tobytes()
 
 
-def le_decompress_device(buf, *, device) -> bytes:
+def le_decompress_device(buf, *, device="cuda") -> bytes:
     """Decode a Low Entropy (+Short: same grammar) stream on ``device``
-    ('cuda', 'cuda:N' or 'cpu'; CUDA runs the hrt1_decode kernel, CPU its
-    plain version)."""
+    ('cuda', the default, 'cuda:N' or 'cpu'; CUDA runs the hrt1_decode
+    kernel, CPU its plain version)."""
     return _decode(walk_le(buf), device)
 
 
@@ -178,7 +178,7 @@ def walk_rle8m(buf) -> tuple:
     return cols, B, sizes
 
 
-def rle8m_decompress_device(buf, *, device) -> bytes:
+def rle8m_decompress_device(buf, *, device="cuda") -> bytes:
     """Decode an ``rle8m`` container on ``device``, one block per
     subsection: the analog of ``rle8m_opencl_decompress``
     (rle8_ocl.c:265-413) with the NDRange replaced by the block axis.  The

@@ -238,10 +238,11 @@ def bitmmtf_decode_device(x: torch.Tensor, *, unit: int = 1) -> torch.Tensor:
 
 
 def mmtf_transform(data, *, lanes: int = 16, encode: bool = True,
-                   device) -> bytes:
-    """Reference-exact MMTF of a byte string of any length, on ``device``.
-    The trailing partial unit is looked up in the final histories without
-    an update (mmtf.c:161-175)."""
+                   device="cuda") -> bytes:
+    """Reference-exact MMTF of a byte string of any length, on ``device``
+    (the card unless the caller asks for 'cpu').  The trailing partial
+    unit is looked up in the final histories without an update
+    (mmtf.c:161-175)."""
     arr = np.frombuffer(memoryview(bytes(data)), np.uint8)
     n = arr.size
     if n == 0:

@@ -78,9 +78,10 @@ def finish(y: torch.Tensor, usize: int, s: int) -> torch.Tensor:
 
 
 def decompress_ref_device(buf, codec, *, block_size: int = DEFAULT_BLOCK,
-                          device) -> bytes:
-    """Decode a reference-format stream on ``device`` ('cuda', 'cuda:N' or
-    'cpu'; CUDA runs the hrt1_decode kernel, CPU its plain version).
+                          device="cuda") -> bytes:
+    """Decode a reference-format stream on ``device`` ('cuda', the default,
+    'cuda:N' or 'cpu'; CUDA runs the hrt1_decode kernel, CPU its plain
+    version).
 
     The host walks the grammar once; the columns cross through pinned
     buffers; the kernel expands all blocks; the width re-interleave runs

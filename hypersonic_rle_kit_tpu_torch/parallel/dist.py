@@ -238,7 +238,7 @@ def serialize_local_blocks(pb: PlanarBlocks, mesh, *, min_count: int = 6,
     return ld_parts, container.FLAG_DEEP | container.FLAG_LITDICT
 
 
-def compress_distributed(data, mesh, *, device,
+def compress_distributed(data, mesh, *, device="cuda",
                          block_size: int = 1 << 16,
                          min_count: int = 6,
                          codec_index: int = 0) -> bytes:

@@ -12,7 +12,7 @@ literal dictionary) and in the flat layout:
   window;
 - one ``api.decompress`` split into its stages (parse + pack on the host,
   H2D, device decode, D2H into a pinned buffer, host slice), each closed
-  by a synchronize.
+  by a synchronize (``bench.decompress_split``).
 
 Prints a summary on stdout; ``--out F`` also writes the full op tables to F.
 """
@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import pathlib
-import subprocess
 import sys
 import time
 
@@ -33,6 +32,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from hypersonic_rle_kit_tpu_torch import api, datasets  # noqa: E402
+from hypersonic_rle_kit_tpu_torch.bench import (  # noqa: E402
+    card_line, decompress_split)
 from hypersonic_rle_kit_tpu_torch.ops import planar, unpack_device  # noqa: E402
 from hypersonic_rle_kit_tpu_torch.parallel import container  # noqa: E402
 from hypersonic_rle_kit_tpu_torch.utils import native  # noqa: E402
@@ -77,34 +78,13 @@ def profile_dispatch(name, blob, dev, iters) -> str:
 
 
 def stage_split(name, blob, raw, dev):
-    times = []
-    for _ in range(3):
-        t = [time.perf_counter()]
-        info, blocks = container.parse(blob)
-        pk = container.pack_for_device(blob, parsed=(info, blocks))
-        t.append(time.perf_counter())
-        arrs = unpack_device.ship_packed(pk, dev)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        yd, bad = unpack_device.dispatch_packed(pk, arrs, with_flags=True,
-                                                out_words=True)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        assert bad is None or not bool(bad.any())
-        y = api._to_host_bytes(yd, words=True)
-        t.append(time.perf_counter())
-        got = y.reshape(-1)[:info.uncompressed_size].tobytes()
-        t.append(time.perf_counter())
-        assert got == raw
-        times.append(np.diff(t) * 1e3)
-    best = np.min(np.array(times), axis=0)
+    best = decompress_split(blob, raw, dev)
     t0 = time.perf_counter()
     api.decompress(blob, device=dev)
     whole = (time.perf_counter() - t0) * 1e3
-    print(f"{name}: decompress stages, best of 3 (ms): parse+pack "
-          f"{best[0]:.2f} | H2D {best[1]:.2f} | device decode {best[2]:.2f}"
-          f" | D2H {best[3]:.2f} | host slice {best[4]:.2f} | api.decompress"
-          f" {whole:.2f}")
+    print(f"{name}: decompress stages, best of 3 (ms): "
+          + " | ".join(f"{k} {v:.2f}" for k, v in best.items())
+          + f" | api.decompress {whole:.2f}")
 
 
 def main() -> int:
@@ -117,10 +97,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_decode: no CUDA device")
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     print(f"card: {card}")
     raw = datasets.make_dataset(args.mib).tobytes()
     deep = api.compress(raw, "8 Bit", backend="native", device="cpu")

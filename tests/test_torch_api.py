@@ -13,11 +13,15 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from hypersonic_rle_kit_tpu import api as japi
 from hypersonic_rle_kit_tpu_torch import api
-from hypersonic_rle_kit_tpu_torch.ops import planar, unpack_device
-from hypersonic_rle_kit_tpu_torch.parallel import container
+from hypersonic_rle_kit_tpu_torch.formats import low_entropy, registry
+from hypersonic_rle_kit_tpu_torch.ops import (low_entropy_device, mmtf_device,
+                                              planar, ref_device,
+                                              unpack_device)
+from hypersonic_rle_kit_tpu_torch.parallel import container, dist
 from hypersonic_rle_kit_tpu_torch.utils import native
 
 B = 4096
@@ -118,6 +122,43 @@ def test_compress_defaults_to_the_card(monkeypatch):
     with pytest.raises(Picked) as e:
         api.compress(_data(9_001, 9), "8 Bit", block_size=B)
     assert e.value.args == ("cuda", True)
+
+
+# each device entry point and an input it takes (None: it needs a mesh)
+_ENTRY_POINTS = {
+    "api.decompress": (api.decompress,
+                       lambda raw: (api.compress(raw, device="cpu"),)),
+    "decompress_ref_device": (ref_device.decompress_ref_device,
+                              lambda raw: (registry.compress(raw, "8 Bit"),
+                                           "8 Bit")),
+    "le_decompress_device": (low_entropy_device.le_decompress_device,
+                             lambda raw: (low_entropy.le_compress(raw),)),
+    "rle8m_decompress_device": (low_entropy_device.rle8m_decompress_device,
+                                lambda raw: (low_entropy.rle8m_compress(
+                                    4, raw),)),
+    "mmtf_transform": (mmtf_device.mmtf_transform, lambda raw: (raw,)),
+    "compress_distributed": (dist.compress_distributed, None),
+}
+
+
+@pytest.mark.parametrize("name", list(_ENTRY_POINTS))
+def test_device_entry_points_default_to_the_card(name):
+    """Every device entry point runs on the card unless the caller asks
+    for the CPU: ``device`` defaults to "cuda", and without a card a call
+    at that default raises instead of falling back to the CPU."""
+    fn, make_args = _ENTRY_POINTS[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if make_args is None:
+        return
+    raw = _data(9_001, 10)
+    args = make_args(raw)
+    if name != "mmtf_transform":
+        assert fn(*args, device="cpu") == raw
+    if torch.cuda.is_available():
+        assert fn(*args) == fn(*args, device="cpu")
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            fn(*args)
 
 
 def test_compress_bounds_and_empty():

@@ -232,6 +232,7 @@ def test_fuzz_inputs_and_corpora_equal_original():
     assert list(fuzz.random_inputs(6, 5)) == list(jfuzz.random_inputs(6, 5))
     assert (list(itertools.islice(fuzz.iterative_inputs(4), 12))
             == list(itertools.islice(jfuzz.iterative_inputs(4), 12)))
-    for make in ("make_dataset", "make_bwt_dataset", "make_random_dataset"):
+    for make in ("make_dataset", "make_bwt_dataset", "make_sh_dataset",
+                 "make_random_dataset"):
         assert np.array_equal(getattr(datasets, make)(1),
                               getattr(bench, make)(1)), make
