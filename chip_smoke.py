@@ -72,7 +72,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     against their plain versions on its blocks.  (b) one NCCL rank in
     this process (world size 1) compresses 16 MiB the same way, so the
     exchange runs on CUDA tensors once.  Logs the two-rank wall beside the
-    single-process compress wall.
+    single-process compress wall.  (c) with two cards or more: NCCL at
+    world size min(4, cards), one rank per card (fresh interpreters), on
+    make_dataset(64 * world) (weak scaling) and the 64 MiB corpus (strong
+    scaling), 256 KiB blocks: every rank's compress_distributed at its
+    default device must equal the native container, which decompresses
+    to the input on card 0; each rank's pipeline_step returns its blocks
+    with exclusive-prefix offsets; each rank launched hrt1_encode and
+    hrt1_decode and holds both against their plain versions on its
+    blocks; every collective ran on the rank's own card.  Logs the wall
+    (slowest rank, best of 2 after a warm-up) at world 1 and at world N,
+    each rank's split (encode with its D2H and local statistics |
+    statistics and vote exchange | serialize | parts gather | assemble)
+    and the bytes each collective sent; then dryrun_multichip on NCCL,
+    and its refusal of more ranks than cards.
 11. device fuzz lane: fuzz.run_device on the card over 20 inputs (10
     random, 10 iterative) x the 10 DEVICE_FUZZ_CODECS: round trips, 4
     mutated and 3 truncated containers each; no failure, and hrt1_decode
@@ -94,9 +107,11 @@ operations at 67 TFLOP/s, the larger); the last line is
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import json
 import pathlib
+import subprocess
 import sys
 import tempfile
 import time
@@ -777,24 +792,40 @@ def mmtf_phase(dev, card: str):
 # phases 10-11: distribution, device fuzz lane
 # ---------------------------------------------------------------------------
 
-# one gloo rank of phase 10a: argv WORKDIR WORLD RANK; the stream is
-# WORKDIR/data.bin; the ranks share card 0
-DIST_RANK = r"""
-import json, sys, time
+# what the rank scripts of phase 10 share: argv WORKDIR WORLD RANK, and
+# kernel_errs, both kernels against their plain versions on a rank's blocks
+# (launches made after the rank has read its counts)
+RANK_PRELUDE = r"""
+import hashlib, json, pickle, sys, time
 import numpy as np
 import torch
 import torch.distributed as tdist
 from hypersonic_rle_kit_tpu_torch import api
 from hypersonic_rle_kit_tpu_torch.ops import (decode_sup, device, encode_sup,
                                               planar, transfer)
-from hypersonic_rle_kit_tpu_torch.parallel import container, dist
-from hypersonic_rle_kit_tpu_torch.utils import native
+from hypersonic_rle_kit_tpu_torch.parallel import dist
 
 def err(a, b):
     assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape)
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
+def kernel_errs(xd, tl, B, cap):
+    ek = encode_sup.encode_blocks_kernel(xd, tl, capacity=cap, min_count=6)
+    pb = device.encode_blocks(xd, tl, capacity=cap, min_count=6)
+    errs = {"hrt1_encode": max(err(a, b) for a, b in zip(ek, (
+        pb.sym, pb.count, pb.lit_len, pb.lits, pb.n_cmds, pb.n_lits))),
+            "hrt1_decode": err(
+        decode_sup.decode_columns_device(*ek, tl, block_size=B),
+        decode_sup.decode_columns_plain(*ek, tl, block_size=B))}
+    torch.cuda.synchronize()
+    return errs
+
 workdir, world, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+"""
+
+# one gloo rank of phase 10a; the stream is WORKDIR/data.bin; the ranks
+# share card 0
+DIST_RANK = RANK_PRELUDE + r"""
 if not torch.cuda.is_available():
     raise SystemExit("rank: torch.cuda.is_available() is false")
 dev = torch.device("cuda", 0)
@@ -820,16 +851,7 @@ y, offsets, sizes = dist.pipeline_step(xd, tl, capacity=cap, min_count=6,
 roundtrip = torch.equal(y, xd)
 torch.cuda.synchronize()
 launches = api.kernel_launch_counts()
-# both kernels against their plain versions at this rank's shapes (these
-# launches come after the count is read)
-ek = encode_sup.encode_blocks_kernel(xd, tl, capacity=cap, min_count=6)
-pb = device.encode_blocks(xd, tl, capacity=cap, min_count=6)
-errs = {"hrt1_encode": max(err(a, b) for a, b in zip(ek, (
-    pb.sym, pb.count, pb.lit_len, pb.lits, pb.n_cmds, pb.n_lits))),
-        "hrt1_decode": err(
-    decode_sup.decode_columns_device(*ek, tl, block_size=B),
-    decode_sup.decode_columns_plain(*ek, tl, block_size=B))}
-torch.cuda.synchronize()
+errs = kernel_errs(xd, tl, B, cap)
 if rank == 0:
     with open(f"{workdir}/blob.bin", "wb") as f:
         f.write(blob)
@@ -922,6 +944,220 @@ def dist_phase(dct: bytes, native_blob: bytes, dev, card: str,
         f"launched {encodes}")
     return {k: max(x["errs"][k] for x in res)
             for k in ("hrt1_encode", "hrt1_decode")}
+
+
+# one NCCL rank of phase 10c, on its own card (initialize_multihost makes
+# it the current device); the streams are WORKDIR/<name>.bin, and
+# WORKDIR/streams.json maps each name to the sha256 of its native container
+NCCL_RANK = RANK_PRELUDE + r"""
+dist.initialize_multihost(tdist.FileStore(f"{workdir}/store", world), world,
+                          rank, backend="nccl", timeout=600)
+card = torch.cuda.current_device()
+mesh, one = dist.make_mesh(), dist.make_mesh(1)
+streams = json.loads(open(f"{workdir}/streams.json").read())
+B = 1 << 18
+cap = planar.capacity_for(B, 6)
+
+# the collectives compress_distributed and pipeline_step call, timed and
+# sized: (name, start, end, bytes sent, device type, device index)
+calls = []
+all_gather, all_gather_object = tdist.all_gather, tdist.all_gather_object
+
+def spy(out, t, *a, **k):
+    t0 = time.perf_counter()
+    r = all_gather(out, t, *a, **k)
+    torch.cuda.synchronize()
+    calls.append(("all_gather", t0, time.perf_counter(), t.nbytes,
+                  t.device.type, t.device.index))
+    return r
+
+def spy_object(out, obj, *a, **k):
+    t0 = time.perf_counter()
+    r = all_gather_object(out, obj, *a, **k)
+    calls.append(("all_gather_object", t0, time.perf_counter(),
+                  len(pickle.dumps(obj)), "cuda", torch.cuda.current_device()))
+    return r
+
+def compress(data, m):
+    t0 = time.perf_counter()
+    blob = dist.compress_distributed(data, m, block_size=B)
+    return time.perf_counter() - t0, blob
+
+res = {"card": card, "name": torch.cuda.get_device_name(card)}
+for name, want in streams.items():
+    data = np.fromfile(f"{workdir}/{name}.bin", np.uint8)
+    r = res[name] = {}
+    # walls at world N and at world 1 (rank 0 alone on a one-rank NCCL
+    # group): a warm-up, then two timed calls
+    for key, m in (("walls", mesh), ("walls1", one)):
+        r[key] = []
+        for _ in range(3):
+            tdist.barrier()
+            if m is one and rank:
+                continue
+            sec, blob = compress(data, m)
+            if hashlib.sha256(blob).hexdigest() != want:
+                raise AssertionError(f"rank {rank} {name} world "
+                                     f"{tdist.get_world_size(m)}: "
+                                     f"compress_distributed != native")
+            r[key].append(sec)
+    tdist.barrier()
+    # the main path, counted and with its collectives recorded: one
+    # compress_distributed at world N at its default device, then
+    # pipeline_step on this rank's blocks
+    x, lens = api._to_blocks(data, B)
+    per = x.shape[0] // world
+    mine = slice(rank * per, (rank + 1) * per)
+    xd = transfer.to_device(x[mine], torch.device("cuda", card))
+    tl = transfer.to_device(lens[mine], torch.device("cuda", card))
+    calls.clear()
+    tdist.all_gather, tdist.all_gather_object = spy, spy_object
+    api.reset_kernel_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        blob = dist.compress_distributed(data, mesh, block_size=B)
+        t1 = time.perf_counter()
+        y, offsets, sizes = dist.pipeline_step(xd, tl, capacity=cap,
+                                               min_count=6, mesh=mesh)
+        roundtrip = torch.equal(y, xd)
+        torch.cuda.synchronize()
+    finally:
+        tdist.all_gather, tdist.all_gather_object = (all_gather,
+                                                     all_gather_object)
+    r["launches"] = api.kernel_launch_counts()
+    if hashlib.sha256(blob).hexdigest() != want:
+        raise AssertionError(f"rank {rank} {name}: counted "
+                             f"compress_distributed != native")
+    if rank == 0:
+        with open(f"{workdir}/{name}.blob", "wb") as f:
+            f.write(blob)
+    r["calls"] = [(c[0], c[3], c[4], c[5]) for c in calls]
+    stats, votes, parts = calls[:3]
+    if [c[0] for c in calls] != ["all_gather"] * 2 + ["all_gather_object",
+                                                      "all_gather"]:
+        raise AssertionError(f"rank {rank}: collectives {r['calls']}")
+    r["split_ms"] = {k: v * 1e3 for k, v in (
+        ("encode", stats[1] - t0),
+        ("exchange", stats[2] - stats[1] + votes[2] - votes[1]),
+        ("serialize", parts[1] - stats[2] - (votes[2] - votes[1])),
+        ("parts_gather", parts[2] - parts[1]),
+        ("assemble", t1 - parts[2]))}
+    r.update(roundtrip=roundtrip, sizes=sizes.tolist(),
+             offsets=offsets.tolist(), shape=list(xd.shape),
+             errs=kernel_errs(xd, tl, B, cap))
+    del y, xd
+    torch.cuda.empty_cache()
+with open(f"{workdir}/rank{rank}.json", "w") as f:
+    json.dump(res, f)
+tdist.destroy_process_group()
+"""
+
+
+def nccl_phase(dct: bytes, native_blob: bytes, dev, card: str) -> dict:
+    """(c) NCCL at world size min(4, cards), one rank per card: weak
+    scaling on make_dataset(64 * world) and strong scaling on the 64 MiB
+    corpus, 256 KiB blocks.  Every rank's compress_distributed at its
+    default device == native, the round trip on card 0, pipeline_step
+    round trips and exclusive-prefix offsets, both kernels launched on
+    every rank and equal to their plain versions there, every all_gather
+    on the rank's own card; the walls at world 1 and N, each rank's split
+    and the bytes of each collective; then graft_entry's NCCL dry run.
+    Returns the max |error| of hrt1_encode and hrt1_decode over the
+    ranks."""
+    world = min(4, torch.cuda.device_count())
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    log(f"distribution (c): cards {cards}")
+    weak = f"weak{64 * world}"
+    streams = {"strong64": dct,
+               weak: datasets.make_dataset(64 * world).tobytes()}
+    natives = {"strong64": native_blob,
+               weak: api.compress(streams[weak], "8 Bit", backend="native",
+                                  device="cpu")}
+    with tempfile.TemporaryDirectory() as wd:
+        for name, raw in streams.items():
+            pathlib.Path(f"{wd}/{name}.bin").write_bytes(raw)
+        pathlib.Path(f"{wd}/streams.json").write_text(json.dumps(
+            {n: hashlib.sha256(b).hexdigest() for n, b in natives.items()}))
+        t0 = time.perf_counter()
+        graft_entry.run_ranks([sys.executable, "-c", NCCL_RANK], world, wd,
+                              timeout=600)
+        ranks_s = time.perf_counter() - t0
+        res = [json.loads(pathlib.Path(f"{wd}/rank{r}.json").read_text())
+               for r in range(world)]
+        blobs = {n: pathlib.Path(f"{wd}/{n}.blob").read_bytes()
+                 for n in streams}
+    if [x["card"] for x in res] != list(range(world)):
+        raise AssertionError(f"NCCL ranks on cards {[x['card'] for x in res]}")
+    on = ", ".join(f"{x['name']} cuda:{x['card']}" for x in res)
+    errs = dict.fromkeys(("hrt1_encode", "hrt1_decode"), 0)
+    for name, raw in streams.items():
+        if blobs[name] != natives[name]:
+            raise AssertionError(f"{name}: rank 0's blob != native")
+        if api.decompress(blobs[name], device=dev) != raw:
+            raise AssertionError(f"{name}: decompress on card 0 != input")
+        rs = [x[name] for x in res]
+        for r, x in enumerate(rs):
+            if not x["roundtrip"]:
+                raise AssertionError(f"{name} rank {r}: pipeline_step != "
+                                     f"its blocks")
+            for k in errs:
+                if x["launches"][k] < 1:
+                    raise AssertionError(f"{name} rank {r} never launched "
+                                         f"{k}")
+                if x["errs"][k]:
+                    raise AssertionError(f"{name} rank {r}: {k} != plain on "
+                                         f"{x['shape']}: {x['errs'][k]}")
+                errs[k] = max(errs[k], x["errs"][k])
+            if {(c[2], c[3]) for c in x["calls"]} != {("cuda", r)}:
+                raise AssertionError(f"{name} rank {r}: collectives on "
+                                     f"{x['calls']}")
+        sizes = np.concatenate([x["sizes"] for x in rs]).astype(np.int64)
+        if np.concatenate([x["offsets"] for x in rs]).tolist() != (
+                np.cumsum(sizes) - sizes).tolist():
+            raise AssertionError(f"{name}: offsets != exclusive prefix of "
+                                 f"the sizes")
+        # a timed call's wall is its slowest rank's; best of the two after
+        # the warm-up
+        wall = min(max(w) for w in zip(*(x["walls"][1:] for x in rs)))
+        wall1 = min(rs[0]["walls1"][1:])
+        mib = len(raw) >> 20
+        log(f"[{card}] distribution (c), NCCL world size {world}, one rank "
+            f"per card ({on}), {name} ({mib} MiB DCT, 256 KiB blocks, "
+            f"{mib // world} MiB a rank): compress_distributed wall {wall * 1e3:.1f} ms at world "
+            f"{world} vs {wall1 * 1e3:.1f} ms at world 1 (slowest rank, best "
+            f"of 2 after a warm-up) = {wall1 / wall:.2f}x")
+        for r, x in enumerate(rs):
+            sent = {}
+            for c in x["calls"]:
+                sent.setdefault(c[0], []).append(c[1])
+            log(f"  [{card}] rank {r} split (ms): "
+                + " | ".join(f"{k} {v:.1f}" for k, v in x["split_ms"].items())
+                + f"; bytes sent: stats + vote all_gathers "
+                f"{sent['all_gather'][:2]}, parts all_gather_object "
+                f"{sent['all_gather_object']}, pipeline_step sizes "
+                f"{sent['all_gather'][2:]}; launches {x['launches']}")
+    log(f"distribution (c): NCCL world size {world}: every rank's "
+        f"compress_distributed == native at its default device, round "
+        f"trips on card 0, pipeline_step round trips, offsets == exclusive "
+        f"prefix, hrt1_encode and hrt1_decode launched on every rank and == "
+        f"plain there, every collective on the rank's own card; ranks ran "
+        f"{ranks_s:.1f} s")
+    try:
+        graft_entry.dryrun_multichip(torch.cuda.device_count() + 1, "cuda")
+    except ValueError as e:
+        log(f"  dryrun_multichip({torch.cuda.device_count() + 1}, 'cuda') "
+            f"refused: {e}")
+    else:
+        raise AssertionError("dryrun_multichip ran more NCCL ranks than "
+                             "cards")
+    graft_entry.dryrun_multichip(world, "cuda")
+    log(f"distribution (c) in {time.perf_counter() - t_phase:.1f} s")
+    return errs
 
 
 def fuzz_phase(dev, card: str) -> None:
@@ -1190,6 +1426,13 @@ def main() -> int:
     for k, e in dist_phase(dct, native_blobs["dct64"], dev, card,
                            wk).items():
         errs[k] = max(errs[k], e)
+    if torch.cuda.device_count() >= 2:
+        for k, e in nccl_phase(dct, native_blobs["dct64"], dev,
+                               card).items():
+            errs[k] = max(errs[k], e)
+    else:
+        log("distribution (c): skipped, one card (NCCL needs a card per "
+            "rank)")
     fuzz_phase(dev, card)
 
     # ---- 12. the port's bench at its defaults ----

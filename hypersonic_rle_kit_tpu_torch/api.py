@@ -9,7 +9,9 @@ Port of hypersonic_rle_kit_tpu/api.py; both directions run on the device:
 - ``decompress(buf, device=...)``: the host slices the container into
   payload sections (container.pack_for_device), ships them in two
   copies, and the device bit-unpacks and resolves (hrt1_unpack_resolve),
-  decodes (hrt1_decode) and re-interleaves the widths.
+  decodes (hrt1_decode) and re-interleaves the widths.  The JAX package's
+  ``backend="device"`` (plain torch decode) and ``"host"`` (numpy) are
+  there too.
 
 There is no fallback: a kernel error or ``torch.cuda.OutOfMemoryError``
 propagates, and ``kernel_launch_counts()`` shows which kernels ran.
@@ -232,12 +234,18 @@ def _to_host_bytes(y: torch.Tensor, words: bool) -> np.ndarray:
     return decode_sup.words_to_bytes(yh) if words else yh
 
 
-def decompress(buf, *, device="cuda") -> bytes:
-    """Decompress an HRT1 container on ``device`` ('cuda', the default,
-    'cuda:N' or 'cpu'; CUDA runs the Hopper kernels, CPU their plain
-    versions).
+def decompress(buf, *, backend: str = "auto", device="cuda") -> bytes:
+    """Decompress an HRT1 container.
+
+    ``backend``: 'auto' or 'kernel' (on ``device``: 'cuda', the default,
+    or 'cuda:N' runs the Hopper kernels, 'cpu' their plain versions),
+    'device' (the container unpacked on the host, then the plain torch
+    ``ops/device.decode_blocks`` on ``device``) or 'host' (numpy,
+    ``planar.host_decode_block``).  Every backend gives the same bytes.
 
     Raises ContainerError on a malformed or hostile container."""
+    if backend not in ("auto", "kernel", "device", "host"):
+        raise ValueError(f"unknown backend {backend!r}")
     buf = bytes(buf)
     info, blocks = container.parse(buf)
     if info.uncompressed_size == 0:
@@ -251,15 +259,46 @@ def decompress(buf, *, device="cuda") -> bytes:
         raise container.ContainerError(
             f"block size {B} not divisible by codec "
             f"{info.codec_index}'s {w}-byte width")
-    dev = torch.device(device)
+    dev = torch.device("cpu" if backend == "host" else device)
 
     orig_len = np.full(info.n_blocks, B, np.int32)
     orig_len[-1] = info.uncompressed_size - (info.n_blocks - 1) * B
     tlen = _lane_lens(orig_len, w)   # widths decode in byte lanes
-    # width-1 and whole-word widths take the words form (free byte view)
-    words = (w == 1 or w % 4 == 0) and B % 4 == 0
+    # width-1 and whole-word widths decode to the words form (free byte
+    # view) on the kernel path; the plain decoders give bytes
+    words = (backend in ("auto", "kernel") and (w == 1 or w % 4 == 0)
+             and B % 4 == 0)
+    if backend == "host":
+        sym, count, lit_len, lits, n_cmds, _, _ = _host_columns(buf, tlen)
+        yd = torch.from_numpy(np.stack([
+            np.pad(planar.host_decode_block(
+                sym[b], count[b], lit_len[b], lits[b], int(n_cmds[b]),
+                int(tlen[b])), (0, B - int(tlen[b])))
+            for b in range(info.n_blocks)]))
+    elif backend == "device":
+        yd = device_ops.decode_blocks(planar.PlanarBlocks(
+            *decode_sup.columns_to_device(_host_columns(buf, tlen), dev)))
+    else:
+        yd = _decode_packed(buf, info, blocks, tlen, dev, words)
+    if w > 1:
+        yd = _interleave(yd, orig_len, w)
+    y = _to_host_bytes(yd, words)
+    # only the last block can be partial (container.parse), so masking
+    # each block to its length is one slice of the row-major rows
+    return y.reshape(-1)[:info.uncompressed_size].tobytes()
 
-    yd = None
+
+def _host_columns(buf: bytes, tlen: np.ndarray) -> tuple:
+    """The container unpacked on the host: ``(sym, count, lit_len, lits,
+    n_cmds, n_lits, block_len)`` with the blocks' lane lengths ``tlen``."""
+    _, cols = container.deserialize_to_planar(buf)
+    return (*cols[:6], tlen)
+
+
+def _decode_packed(buf: bytes, info, blocks, tlen: np.ndarray,
+                   dev: torch.device, words: bool) -> torch.Tensor:
+    """The kernel path: the packed sections shipped to ``dev``, unpacked,
+    resolved (hrt1_unpack_resolve) and decoded (hrt1_decode) there."""
     pk = container.pack_for_device(buf, parsed=(info, blocks))
     if pk is not None:
         pk["block_len"] = tlen
@@ -269,23 +308,13 @@ def decompress(buf, *, device="cuda") -> bytes:
         # a set flag marks a hostile deep container: its stored sub-header
         # counts disagree with the escape population; the validating host
         # reader below raises ContainerError for it
-        if bad is not None and bool(bad.any()):
-            yd = None
-    if yd is None:
-        # non-uniform bit widths (pack_for_device -> None) or a flagged
-        # container: unpack on the host, decode the columns on the device
-        _, (sym, count, lit_len, lits, n_cmds, n_lits, _bl) = \
-            container.deserialize_to_planar(buf)
-        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
-             (sym, count, lit_len, lits, n_cmds, n_lits, tlen)]
-        yd = decode_sup.decode_columns_device(*t, block_size=B,
-                                              out_words=words)
-    if w > 1:
-        yd = _interleave(yd, orig_len, w)
-    y = _to_host_bytes(yd, words)
-    # only the last block can be partial (container.parse), so masking
-    # each block to its length is one slice of the row-major rows
-    return y.reshape(-1)[:info.uncompressed_size].tobytes()
+        if bad is None or not bool(bad.any()):
+            return yd
+    # non-uniform bit widths (pack_for_device -> None) or a flagged
+    # container: unpack on the host, decode the columns on the device
+    return decode_sup.decode_columns_device(
+        *decode_sup.columns_to_device(_host_columns(buf, tlen), dev),
+        block_size=info.block_size, out_words=words)
 
 
 def _resolve(codec) -> spec_mod.CodecSpec:

@@ -1,24 +1,33 @@
-"""Device fuzz lane: HRT1 containers, real and mutated, through the port's
-decoders.
+"""Structured round-trip fuzzer: the host codecs, and HRT1 containers, real
+and mutated, through the port's decoders.
 
-Port of the ``--device`` lane of hypersonic_rle_kit_tpu/fuzz.py, with its
-own copies of that module's input generators and codec subset (the same
-seeds give the same inputs).  Each input is compressed with each codec and decompressed on the
-device; then the container is mutated (random bit flips) and truncated.
-A mutated container must raise ``ContainerError`` or decode without
-another exception, and a truncated one must raise ``ContainerError``: on
-CUDA this holds the kernels (hrt1_unpack_resolve, hrt1_decode) to hostile
-input, the analog of the reference's buffer-scramble trap
-(rle_fuzz.c:629-636).
+Port of hypersonic_rle_kit_tpu/fuzz.py, with its own copies of that
+module's input generators and codec subset (the same seeds give the same
+inputs).  Two lanes:
 
-Usage:  python -m hypersonic_rle_kit_tpu_torch.fuzz --device cuda|cpu
+- host (the default): every non-memcpy codec of ``formats`` round-trips
+  each input, with the reference harness's traps (rle_fuzz.c): the
+  encoder's input is checksummed around the call
+  (INPUT_BUFFER_VALIDATE, :605-612), the compressed buffer is poisoned past
+  its claimed size before decoding (:629-636), and a failing input is
+  written to ``fuzz-failure.bin`` (:582-585);
+- ``--device cuda|cpu``: each input is compressed with each codec of
+  ``DEVICE_FUZZ_CODECS`` and decompressed on the device; then the container
+  is mutated (random bit flips) and truncated.  A mutated container must
+  raise ``ContainerError`` or decode without another exception, and a
+  truncated one must raise ``ContainerError``: on CUDA this holds the
+  kernels (hrt1_unpack_resolve, hrt1_decode) to hostile input, the analog
+  of the buffer-scramble trap.
+
+Usage:  python -m hypersonic_rle_kit_tpu_torch.fuzz [--device cuda|cpu]
         [--iterative|--random] [--iterations N] [--sections N]
-        [--codec NAME ...]
+        [--codec NAME ...] [--skip-slow]
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import itertools
 import sys
 
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from . import api, spec as spec_mod
+from .formats import registry
 from .parallel import container
 
 BOUNDARY_LENGTHS = (
@@ -70,6 +80,54 @@ def random_inputs(sections: int, iterations: int, seed: int = 0xF00D):
             parts.append(_section(rng, length, kind,
                                   int(rng.integers(1, 17))))
         yield np.concatenate(parts).tobytes()
+
+
+def fuzz_one(data: bytes, s: spec_mod.CodecSpec,
+             scramble_seed: int = 7) -> str | None:
+    """Round-trip one input through one host codec; returns an error string
+    or None.  Includes the buffer-scramble and input-validation traps."""
+    in_digest = hashlib.sha256(data).digest()
+    comp = registry.compress(data, s)
+    if hashlib.sha256(data).digest() != in_digest:
+        return "encoder corrupted its input buffer"
+    if not comp and data:
+        return "compress returned empty"
+    # the decoder gets a longer buffer whose bytes past the claimed size are
+    # random (a swept slack length, so an off-by-small read hits poison at
+    # once); pure transforms carry no header and are decoded with an exact
+    # size argument, so they are excluded, as in the reference harness
+    if s.is_transform:
+        poisoned = comp
+    else:
+        rng = np.random.default_rng(scramble_seed)
+        slack = int(rng.integers(1, 129))
+        poisoned = comp + rng.integers(0, 256, slack,
+                                       dtype=np.uint8).tobytes()
+    dec = registry.decompress(poisoned, s)
+    if dec != data:
+        return f"round-trip mismatch ({len(dec)} vs {len(data)} bytes)"
+    return None
+
+
+def run(inputs, specs, max_failures: int = 1, log=print) -> int:
+    """Fuzz every input with every host codec spec; returns the number of
+    failures (stops at ``max_failures``), each logged and its input saved
+    to ``fuzz-failure.bin``."""
+    failures = 0
+    for n, data in enumerate(inputs):
+        for s in specs:
+            err = fuzz_one(data, s)
+            if err:
+                failures += 1
+                with open("fuzz-failure.bin", "wb") as f:
+                    f.write(data)
+                log(f"FAILURE [{s.name}] len={len(data)}: {err} "
+                    f"(input saved to fuzz-failure.bin)")
+                if failures >= max_failures:
+                    return failures
+        if (n + 1) % 10 == 0:
+            log(f"  {n + 1} inputs x {len(specs)} codecs clean")
+    return failures
 
 
 # default device-fuzz codec subset: one per HRT1 parameter family
@@ -154,26 +212,44 @@ def run_device(inputs, specs, max_failures: int = 1, log=print,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="hsrlekit-torch-fuzz")
-    ap.add_argument("--device", required=True, choices=("cuda", "cpu"),
-                    help="where the containers are decoded: 'cuda' runs the "
-                         "Hopper kernels, 'cpu' their plain versions")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="fuzz the HRT1 containers on this device ('cuda' "
+                         "runs the Hopper kernels, 'cpu' their plain "
+                         "versions); without it, the host codecs")
     ap.add_argument("--iterative", action="store_true")
     ap.add_argument("--random", action="store_true")
     ap.add_argument("--iterations", type=int, default=50)
     ap.add_argument("--sections", type=int, default=6)
     ap.add_argument("--codec", action="append", default=None)
+    ap.add_argument("--skip-slow", action="store_true",
+                    help="host lane: skip MMTF/greedy codecs (slow host "
+                         "paths)")
     args = ap.parse_args(argv)
 
-    specs = [spec_mod.by_name(n) for n in DEVICE_FUZZ_CODECS]
-    if args.codec:
-        specs = [s for s in spec_mod.REGISTRY if s.name in args.codec]
     if args.iterative:
         inputs = itertools.islice(iterative_inputs(args.sections),
                                   args.iterations)
     else:
         inputs = random_inputs(args.sections, args.iterations)
-    failures = run_device(inputs, specs, device=args.device)
-    print(f"fuzz ({args.device}):", "FAILED" if failures else "clean")
+    if args.device is not None:
+        specs = [spec_mod.by_name(n) for n in DEVICE_FUZZ_CODECS]
+        if args.codec:
+            specs = [s for s in spec_mod.REGISTRY if s.name in args.codec]
+        failures = run_device(inputs, specs, device=args.device)
+        print(f"fuzz ({args.device}):", "FAILED" if failures else "clean")
+        return 1 if failures else 0
+
+    specs = [s for s in spec_mod.REGISTRY
+             if s.family is not spec_mod.Family.MEMCPY]
+    if args.codec:
+        specs = [s for s in specs if s.name in args.codec]
+    if args.skip_slow:
+        specs = [s for s in specs
+                 if s.family not in (spec_mod.Family.MMTF,
+                                     spec_mod.Family.RLE8_MMTF)
+                 and not s.greedy]
+    failures = run(inputs, specs)
+    print("fuzz:", "FAILED" if failures else "clean")
     return 1 if failures else 0
 
 

@@ -13,6 +13,8 @@ Port of the repository's ``__graft_entry__.py``:
 
       python -c "from hypersonic_rle_kit_tpu_torch import graft_entry;
                  graft_entry.dryrun_multichip(2, 'cuda')"
+
+On 'cuda' the ranks are NCCL ranks, one per card; on 'cpu' gloo ranks.
 """
 
 from __future__ import annotations
@@ -97,13 +99,21 @@ def run_ranks(cmd: list[str], world: int, workdir, *,
 
 def dryrun_multichip(n_devices: int, device: str = "cuda", *,
                      timeout: float = 600.0) -> None:
-    """The distributed step over ``n_devices`` gloo ranks on ``device``
-    ('cuda': rank r on card r mod the card count; 'cpu'), each a fresh
-    interpreter: the ``pipeline_step`` round trip, offsets equal to the
-    exclusive prefix of the sizes, ``compress_distributed`` bytes equal to
-    ``api.compress(backend="device")`` and round-tripping, and one line of
-    blocks/s for 1 rank and for ``n_devices`` ranks.  Raises if a rank
-    fails."""
+    """The distributed step over ``n_devices`` ranks, each a fresh
+    interpreter: on 'cuda' NCCL ranks, rank r on card r (ValueError if
+    there are fewer cards than ranks), on 'cpu' gloo ranks.  Checks the
+    ``pipeline_step`` round trip, offsets equal to the exclusive prefix of
+    the sizes, ``compress_distributed`` bytes equal to
+    ``api.compress(backend="device")`` and round-tripping, and prints one
+    line of blocks/s for 1 rank and for ``n_devices`` ranks.  Raises if a
+    rank fails."""
+    if device == "cuda":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n_devices > cards:
+            raise ValueError(f"{n_devices} NCCL ranks need as many cards; "
+                             f"this host has {cards}")
+    elif device != "cpu":
+        raise ValueError(f"device must be 'cuda' or 'cpu', not {device!r}")
     with tempfile.TemporaryDirectory() as wd:
         outs = run_ranks([sys.executable, "-m", __name__, device],
                          n_devices, wd, timeout=timeout)
@@ -118,16 +128,14 @@ def _dryrun_rank(device: str, workdir: str, world: int, rank: int) -> None:
     from .parallel import dist
 
     torch.set_num_threads(1)
-    if device == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("dry run on 'cuda' without a CUDA device")
-        dev = torch.device("cuda", rank % torch.cuda.device_count())
-        torch.cuda.set_device(dev)
+    backend = "nccl" if device == "cuda" else "gloo"
+    dist.initialize_multihost(tdist.FileStore(f"{workdir}/store", world),
+                              world, rank, backend=backend)
+    if device == "cuda":        # the rank's card, made current on joining
+        dev = torch.device("cuda", torch.cuda.current_device())
         label = torch.cuda.get_device_name(dev)
     else:
         dev, label = torch.device(device), "CPU"
-    dist.initialize_multihost(tdist.FileStore(f"{workdir}/store", world),
-                              world, rank, backend="gloo")
     mesh = dist.make_mesh(world)
     B, per_rank = 1024, 2
     cap = planar.capacity_for(B, 6)
@@ -186,11 +194,12 @@ def _dryrun_rank(device: str, workdir: str, world: int, rank: int) -> None:
         cores = os.cpu_count() or 1
         where = (f"{world} CPU processes of one thread sharing {cores} cores"
                  if dev.type == "cpu" else
-                 f"{world} ranks on {torch.cuda.device_count()} card(s)")
+                 f"{world} ranks, one per card, of "
+                 f"{torch.cuda.device_count()} card(s)")
         print(f"scaling ({label}): 1 rank {r1:.0f} blocks/s, {world} ranks "
               f"{rn:.0f} blocks/s, weak-scaling efficiency "
-              f"{100 * rn / (r1 * world):.0f}% of linear ({where}; gloo; "
-              f"{B}-byte blocks)", flush=True)
+              f"{100 * rn / (r1 * world):.0f}% of linear ({where}; "
+              f"{backend}; {B}-byte blocks)", flush=True)
     tdist.destroy_process_group()
 
 

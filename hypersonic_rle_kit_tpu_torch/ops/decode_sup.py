@@ -1,14 +1,15 @@
 """Planar columns -> decoded bytes: the wrapper of the hrt1_decode kernel.
 
-Port of hypersonic_rle_kit_tpu/ops/decode_sup.py's entry point
-``decode_columns_device`` with the same signature and the same ``out_words``
-contract: ``[nb, B/4]`` int32 words whose little-endian byte view is the
-output.  On a CUDA tensor it launches the hand-written kernel
-``csrc/hrt1_decode.cu``; on a CPU tensor it runs the plain version
-(``ops/device.decode_blocks``).  The TPU kernel's geometry limits
-(``fits_kernel``: B a multiple of 1024, B <= 2^19, <= 512 event columns;
-the ``MIN_RUN = 4`` rule) do not carry over: every block size and
-``min_count`` the container allows decodes here.
+Port of hypersonic_rle_kit_tpu/ops/decode_sup.py's entry points
+``decode_columns_device``, with the same signature and the same
+``out_words`` contract (``[nb, B/4]`` int32 words whose little-endian byte
+view is the output), and ``decode_planar_sup`` (host arrays in).  On a
+CUDA tensor it launches the hand-written kernel ``csrc/hrt1_decode.cu``; on
+a CPU tensor it runs the plain version (``ops/device.decode_blocks``).
+The TPU kernel's geometry limits (``fits_kernel``: B a multiple of 1024,
+B <= 2^19, <= 512 event columns; the ``MIN_RUN = 4`` rule) do not carry
+over: every block size and ``min_count`` the container allows decodes
+here.
 """
 
 from __future__ import annotations
@@ -158,9 +159,22 @@ def columns_to_device(cols, device) -> list[torch.Tensor]:
     return [to_device(np.ascontiguousarray(c), dev) for c in cols]
 
 
-def decode_host_columns(cols, *, block_size: int, device) -> torch.Tensor:
+def decode_host_columns(cols, *, block_size: int,
+                        device="cuda") -> torch.Tensor:
     """Numpy planar columns ``(sym, count, lit_len, lits, n_cmds, n_lits,
     block_len)`` -> decoded ``[nb, block_size]`` uint8 on ``device``:
     :func:`columns_to_device`, then :func:`decode_columns_device`."""
     return decode_columns_device(*columns_to_device(cols, device),
                                  block_size=block_size)
+
+
+def decode_planar_sup(sym, count, lit_len, lits, n_cmds, n_lits, block_len,
+                      *, block_size: int, device="cuda") -> torch.Tensor:
+    """Host-array convenience wrapper around the device entry point, as in
+    the JAX package: array-likes cast to the columns' dtypes, then
+    :func:`decode_host_columns` on ``device``."""
+    cols = [np.asarray(a, t) for a, t in (
+        (sym, np.uint8), (count, np.int32), (lit_len, np.int32),
+        (lits, np.uint8), (n_cmds, np.int32), (n_lits, np.int32),
+        (block_len, np.int32))]
+    return decode_host_columns(cols, block_size=block_size, device=device)

@@ -19,7 +19,9 @@ contiguous slice of the block axis on its own device.  The JAX package's
 Collectives run on the backend's device, and the small size and statistics
 vectors move there in one explicit step: NCCL exchanges CUDA tensors (a
 rank whose data is on the CPU cannot use it), gloo exchanges CPU tensors
-(whatever device the rank computes on).  Nothing switches backend or
+(whatever device the rank computes on).  Under NCCL each rank of a host has
+a card of its own (:func:`rank_card`), made the current device when it
+joins, so a bare ``"cuda"`` is that card.  Nothing switches backend or
 device behind the caller's back.
 
 Tests run ranks as CPU processes on gloo (``tests/test_torch_dist.py``).
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import os
 
 import numpy as np
 import torch
@@ -59,6 +62,15 @@ def make_mesh(n_devices: int | None = None):
     return tdist.new_group(list(range(n_devices)))
 
 
+def _card(dev) -> torch.device:
+    """``dev`` as a device; a bare ``"cuda"`` becomes the current card (the
+    rank's own under NCCL, see :func:`initialize_multihost`)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _wire_device(mesh, dev: torch.device) -> torch.device:
     """The device the mesh's backend exchanges tensors on, for a rank that
     computes on ``dev``."""
@@ -66,7 +78,7 @@ def _wire_device(mesh, dev: torch.device) -> torch.device:
     if backend == "gloo":
         return torch.device("cpu")
     if backend == "nccl" and dev.type == "cuda":
-        return dev
+        return _card(dev)
     raise ValueError(f"the {backend!r} backend cannot exchange the tensors "
                      f"of a rank on {dev}")
 
@@ -259,7 +271,7 @@ def compress_distributed(data, mesh, *, device="cuda",
                          f"codec {codec_index} has {w}-byte symbols")
     arr = api._as_bytes_array(data)
     n = arr.size
-    dev = torch.device(device)
+    dev = _card(device)
     world, rank = tdist.get_world_size(mesh), tdist.get_rank(mesh)
     real_nb = max(1, -(-n // block_size))
     nbl = -(-real_nb // world)          # blocks per rank, padded count
@@ -290,21 +302,53 @@ def compress_distributed(data, mesh, *, device="cuda",
                               flags=flags)
 
 
+def rank_card(rank: int, world_size: int, n_cards: int, *,
+              local_rank: int | None = None,
+              local_world_size: int | None = None) -> int:
+    """The card an NCCL rank computes and exchanges on.
+
+    Where the launcher names the rank's place on its host (``LOCAL_RANK``
+    and ``LOCAL_WORLD_SIZE``, the ``torchrun`` convention, so several hosts
+    work) the card is ``local_rank``; otherwise every rank is taken to be
+    on this host and the card is ``rank % n_cards``.  Raises ValueError
+    where two ranks of one host would share a card, which NCCL refuses."""
+    if local_rank is None:
+        card, ranks_here = rank % max(n_cards, 1), world_size
+    else:
+        card = local_rank
+        ranks_here = (local_rank + 1 if local_world_size is None
+                      else local_world_size)
+    if not 0 <= card < n_cards or ranks_here > n_cards:
+        raise ValueError(f"rank {rank}: {ranks_here} NCCL ranks on a host "
+                         f"with {n_cards} card(s) would share a card")
+    return card
+
+
+def _env_int(name: str) -> int | None:
+    v = os.environ.get(name)
+    return None if v is None else int(v)
+
+
 def initialize_multihost(store, world_size: int, rank: int, *, backend: str,
                          timeout: float = 60.0) -> None:
     """Join the process group through ``store`` (a ``torch.distributed``
     Store: FileStore, TCPStore) as ``rank`` of ``world_size``.
 
-    ``backend`` is 'nccl' (CUDA tensors; one card per rank) or 'gloo' (CPU
-    tensors, any compute device); it is taken as given.  The interconnect
-    carries the size exchange, the statistics and vote, and the gathered
-    container parts."""
+    ``backend`` is 'nccl' (CUDA tensors; one card per rank: the rank's
+    :func:`rank_card` becomes the current device before it joins) or
+    'gloo' (CPU tensors, any compute device, the current device left as it
+    is); it is taken as given.  The interconnect carries the size exchange,
+    the statistics and vote, and the gathered container parts."""
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend must be 'nccl' or 'gloo', not {backend!r}")
-    if backend == "nccl" and not (torch.cuda.is_available()
-                                  and tdist.is_nccl_available()):
-        raise RuntimeError("the nccl backend needs CUDA and a torch built "
-                           "with NCCL")
+    if backend == "nccl":
+        if not (torch.cuda.is_available() and tdist.is_nccl_available()):
+            raise RuntimeError("the nccl backend needs CUDA and a torch "
+                               "built with NCCL")
+        torch.cuda.set_device(rank_card(
+            rank, world_size, torch.cuda.device_count(),
+            local_rank=_env_int("LOCAL_RANK"),
+            local_world_size=_env_int("LOCAL_WORLD_SIZE")))
     tdist.init_process_group(backend, store=store, world_size=world_size,
                              rank=rank,
                              timeout=datetime.timedelta(seconds=timeout))

@@ -7,6 +7,7 @@ the tolerance is zero.
 """
 
 import inspect
+import itertools
 import pathlib
 import subprocess
 import sys
@@ -16,10 +17,11 @@ import pytest
 import torch
 
 from hypersonic_rle_kit_tpu import api as japi
+from hypersonic_rle_kit_tpu.ops import decode_sup as jdecode_sup
 from hypersonic_rle_kit_tpu_torch import api
 from hypersonic_rle_kit_tpu_torch.formats import low_entropy, registry
-from hypersonic_rle_kit_tpu_torch.ops import (low_entropy_device, mmtf_device,
-                                              planar, ref_device,
+from hypersonic_rle_kit_tpu_torch.ops import (decode_sup, low_entropy_device,
+                                              mmtf_device, planar, ref_device,
                                               unpack_device)
 from hypersonic_rle_kit_tpu_torch.parallel import container, dist
 from hypersonic_rle_kit_tpu_torch.utils import native
@@ -255,6 +257,70 @@ def test_decompress_rejects_unknown_device():
     blob = api.compress(_data(9000, 6), "8 Bit", block_size=B, device="cpu")
     with pytest.raises(ValueError):
         api.decompress(blob, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's other decoders: decompress(backend='device' | 'host') and
+# decode_sup.decode_planar_sup, on a seeded DCT input and golden records
+# ---------------------------------------------------------------------------
+
+def _gap_input(name: str) -> bytes:
+    """The seeded DCT-like bytes, or the first records of a committed
+    golden pack (reference-codec outputs, real bytes), cut to ~20 KB."""
+    if name == "dct":
+        return _data(5 * B - 333, 12)
+    import ref_oracle
+    recs = ref_oracle._load_pack(int(name.removeprefix("golden")))
+    return b"".join(itertools.islice(recs.values(), 4))[:5 * B - 333]
+
+
+GAP_INPUTS = ["dct", "golden000", "golden040"]
+
+
+@pytest.mark.parametrize("backend", ["device", "host"])
+@pytest.mark.parametrize("codec", ["8 Bit", "24 Bit (Symbol)",
+                                   "32 Bit (Symbol)"])
+@pytest.mark.parametrize("name", GAP_INPUTS)
+def test_decompress_backends_match_jax(name, codec, backend):
+    """Each backend gives the JAX package's bytes under the same backend,
+    which are the kernel path's and the input."""
+    raw = _gap_input(name)
+    w = api.hrt1_params(api._resolve(codec))[0]
+    blob = api.compress(raw, codec, block_size=B * w, device="cpu")
+    got = api.decompress(blob, backend=backend, device="cpu")
+    assert got == japi.decompress(blob, backend=backend) == raw
+    assert api.decompress(blob, backend="kernel", device="cpu") == got
+
+
+def test_decompress_rejects_unknown_backend():
+    blob = api.compress(_data(9000, 7), "8 Bit", block_size=B, device="cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        japi.decompress(blob, backend="xla")
+    with pytest.raises(ValueError, match="unknown backend"):
+        api.decompress(blob, backend="xla", device="cpu")
+
+
+@pytest.mark.parametrize("name", GAP_INPUTS)
+def test_decode_planar_sup_matches_jax(name):
+    """Host columns in, decoded blocks out: the JAX kernel (interpret
+    mode) and the port's wrapper (its plain version on the CPU)."""
+    raw = _gap_input(name)
+    _, lens = api._to_blocks(np.frombuffer(raw, np.uint8), B)
+    cols = _cols(raw)
+    got = decode_sup.decode_planar_sup(*cols, lens, block_size=B,
+                                       device="cpu")
+    want = jdecode_sup.decode_planar_sup(*cols, lens, block_size=B,
+                                         interpret=True)
+    assert got.dtype == torch.uint8
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert got.numpy().reshape(-1)[:len(raw)].tobytes() == raw
+
+
+def test_decode_entry_points_default_to_the_card():
+    for fn in (decode_sup.decode_planar_sup, decode_sup.decode_host_columns):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert inspect.signature(api.decompress).parameters[
+        "backend"].default == "auto"
 
 
 @pytest.mark.parametrize("codec", ["8 Bit", "16 Bit (Symbol)",

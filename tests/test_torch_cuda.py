@@ -9,6 +9,9 @@ configures JAX, which these tests do not use):
 Integers throughout: kernel and plain version must agree byte for byte.
 """
 
+import json
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -577,6 +580,60 @@ def test_compress_on_every_card(dev):
         assert api.decompress(want, device=card) == raw, card
         n = api.kernel_launch_counts()
         assert n["hrt1_encode"] == 1 and n["hrt1_decode"] >= 1, (card, n)
+
+
+# one NCCL rank of test_compress_distributed_nccl_on_every_card: argv
+# WORKDIR WORLD RANK
+_NCCL_RANK = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as tdist
+from hypersonic_rle_kit_tpu_torch import api
+from hypersonic_rle_kit_tpu_torch.parallel import dist
+workdir, world, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+dist.initialize_multihost(tdist.FileStore(f"{workdir}/store", world), world,
+                          rank, backend="nccl", timeout=300)
+data = np.fromfile(f"{workdir}/data.bin", np.uint8)
+wire = []
+all_gather = tdist.all_gather
+def spy(out, t, *a, **k):
+    wire.append(str(t.device))
+    return all_gather(out, t, *a, **k)
+tdist.all_gather = spy
+api.reset_kernel_launch_counts()
+blob = dist.compress_distributed(data, dist.make_mesh())
+with open(f"{workdir}/rank{rank}.json", "w") as f:
+    json.dump(dict(equal=blob == open(f"{workdir}/native.bin", "rb").read(),
+                   card=torch.cuda.current_device(), wire=wire,
+                   encodes=api.kernel_launch_counts()["hrt1_encode"]), f)
+tdist.destroy_process_group()
+"""
+
+
+def test_compress_distributed_nccl_on_every_card(dev, tmp_path):
+    """One NCCL rank per visible card, each a fresh interpreter, calls
+    compress_distributed at its defaults (device "cuda", 64 KiB blocks):
+    each rank computes and exchanges on its own card, and every rank's
+    container equals the native bytes of 16 MiB of the DCT corpus."""
+    from hypersonic_rle_kit_tpu_torch import datasets, graft_entry
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    if native.lib() is None:
+        pytest.skip("native runtime unavailable")
+    _kernels.lib()                  # built once, before the ranks load it
+    raw = datasets.make_dataset(16)
+    raw.tofile(tmp_path / "data.bin")
+    (tmp_path / "native.bin").write_bytes(api.compress(
+        raw, "8 Bit", block_size=1 << 16, backend="native", device="cpu"))
+    graft_entry.run_ranks([sys.executable, "-c", _NCCL_RANK], cards,
+                          tmp_path, timeout=300)
+    for r in range(cards):
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert res["equal"] and res["card"] == r, (r, res)
+        assert res["wire"] and set(res["wire"]) == {f"cuda:{r}"}, (r, res)
+        assert res["encodes"] >= 1, (r, res)
 
 
 def test_mmtf_transform_on_card(dev):

@@ -225,3 +225,92 @@ def test_initialize_multihost_nccl_needs_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="nccl"):
         dist.initialize_multihost(store, 1, 0, backend="nccl")
     assert not torch.distributed.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# each NCCL rank on its own card (no ranks: the choice is a pure function,
+# and initialize_multihost is driven against a stand-in CUDA)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rank, world, cards, local, local_world, card", [
+    (0, 1, 1, None, None, 0),
+    (0, 4, 4, None, None, 0),
+    (3, 4, 4, None, None, 3),
+    (1, 2, 8, None, None, 1),
+    (2, 4, 4, 2, None, 2),       # LOCAL_RANK wins where it is set
+    (5, 8, 4, 1, 4, 1),          # rank 5 of two hosts of 4 cards
+    (6, 8, 4, 2, None, 2),
+])
+def test_rank_card(rank, world, cards, local, local_world, card):
+    assert dist.rank_card(rank, world, cards, local_rank=local,
+                          local_world_size=local_world) == card
+
+
+@pytest.mark.parametrize("rank, world, cards, local, local_world", [
+    (0, 2, 1, None, None),       # two ranks, one card
+    (3, 4, 2, None, None),
+    (5, 8, 4, None, None),       # eight ranks taken to be on one host
+    (0, 2, 2, 2, None),          # LOCAL_RANK past the host's cards
+    (0, 5, 4, 0, 5),             # five ranks on a host of four cards
+    (0, 1, 0, None, None),
+])
+def test_rank_card_refuses_a_shared_card(rank, world, cards, local,
+                                         local_world):
+    """NCCL refuses two ranks of one host on one card: ValueError, never a
+    switch to gloo."""
+    with pytest.raises(ValueError, match="share a card"):
+        dist.rank_card(rank, world, cards, local_rank=local,
+                       local_world_size=local_world)
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    """A stand-in for 4 cards: initialize_multihost's calls, in order."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: calls.append(("set_device", d)))
+    monkeypatch.setattr(torch.distributed, "is_nccl_available", lambda: True)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **k: calls.append((backend,
+                                                           k["rank"])))
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    return calls
+
+
+@pytest.mark.parametrize("env, world, rank, card", [
+    ({}, 4, 2, 2), ({"LOCAL_RANK": "1", "LOCAL_WORLD_SIZE": "4"}, 8, 5, 1)])
+def test_initialize_multihost_nccl_sets_the_rank_card(fake_cuda, monkeypatch,
+                                                      env, world, rank, card):
+    """The rank's card becomes the current device before the group is
+    joined, so NCCL ranks at compress_distributed's default device do not
+    all compute and exchange on card 0."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    dist.initialize_multihost(None, world, rank, backend="nccl")
+    assert fake_cuda == [("set_device", card), ("nccl", rank)]
+
+
+def test_initialize_multihost_nccl_refuses_a_shared_card(fake_cuda):
+    with pytest.raises(ValueError, match="share a card"):
+        dist.initialize_multihost(None, 5, 0, backend="nccl")
+    assert fake_cuda == []
+
+
+def test_initialize_multihost_gloo_leaves_the_device(fake_cuda):
+    dist.initialize_multihost(None, 8, 5, backend="gloo")
+    assert fake_cuda == [("gloo", 5)]
+
+
+def test_bare_cuda_is_the_current_card(monkeypatch):
+    """compress_distributed and the wire resolve a bare "cuda" to the
+    current card (the rank's own under NCCL)."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    assert dist._card("cuda") == torch.device("cuda", 3)
+    assert dist._card("cuda:1") == torch.device("cuda", 1)
+    assert dist._card("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda m: "nccl")
+    assert dist._wire_device(None, torch.device("cuda")) == torch.device(
+        "cuda", 3)

@@ -41,7 +41,16 @@ def test_run_ranks_stops_every_rank(bad, timeout, error, match, tmp_path):
 
 def test_dryrun_multichip_cpu(capsys):
     graft_entry.dryrun_multichip(2, "cpu", timeout=180)
-    assert "scaling (CPU): 1 rank" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "scaling (CPU): 1 rank" in out and "; gloo; " in out
+
+
+def test_dryrun_multichip_cuda_needs_a_card_per_rank():
+    """On 'cuda' the dry run is NCCL, one rank per card: more ranks than
+    cards raise before any rank starts, never a run on gloo."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(ValueError, match="need as many cards"):
+        graft_entry.dryrun_multichip(cards + 1, "cuda", timeout=5)
 
 
 @pytest.mark.parametrize("codec", fuzz.DEVICE_FUZZ_CODECS)
@@ -122,10 +131,21 @@ def test_fuzz_main_cpu(tmp_path, monkeypatch, capsys):
     assert rc == 0 and "fuzz (cpu): clean" in capsys.readouterr().out
 
 
+def test_fuzz_main_host_lane(tmp_path, monkeypatch, capsys):
+    """Without --device the fuzzer runs the host codecs, as the JAX
+    package's does."""
+    monkeypatch.chdir(tmp_path)
+    assert fuzz.main(["--iterations", "5", "--skip-slow"]) == 0
+    assert capsys.readouterr().out.splitlines()[-1] == "fuzz: clean"
+
+
 @pytest.mark.parametrize("main", [fuzz.main, bench_cli.main])
 def test_cli_needs_explicit_device(main, tmp_path):
+    """The device lanes name their device: --device takes 'cuda' or
+    'cpu' (the fuzzer's host lane is the one without --device)."""
     with pytest.raises(SystemExit):
-        main([str(tmp_path / "x.bin")] if main is bench_cli.main else [])
+        main([str(tmp_path / "x.bin")] if main is bench_cli.main
+             else ["--device"])
 
 
 def test_bench_cli_hrt1_test_cpu(tmp_path, capsys):

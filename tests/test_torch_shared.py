@@ -8,8 +8,8 @@ package, and imports nothing of that package.
 - Each copy gives its original's bytes, on the CPU: the 121 codecs of
   ``formats``, the ``spec`` tables, the HRT1 container (serialize, parse,
   pack_for_device on flat, deep and deep + litdict containers), the native
-  host runtime, the grammar walkers, the fuzz inputs and the benchmark
-  corpora.  Tolerance zero.
+  host runtime, the grammar walkers, the fuzz inputs, the host fuzz lane
+  and the benchmark corpora.  Tolerance zero.
 """
 
 import ast
@@ -236,3 +236,82 @@ def test_fuzz_inputs_and_corpora_equal_original():
                  "make_random_dataset"):
         assert np.array_equal(getattr(datasets, make)(1),
                               getattr(bench, make)(1)), make
+
+
+# the host fuzz lane: one or two codecs of every family but memcpy
+HOST_FUZZ_CODECS = ["8 Bit Packed", "8 Bit Single",
+                    "16 Bit 1LUT Short (Symbol)",
+                    "32 Bit 3LUT Short Grdy (Byte)", "16 Bit 3LUT (Symbol)",
+                    "24 Bit Packed (Symbol)", "128 Bit (Byte)",
+                    "8 Bit RLE + Huffman-esque", "8 Bit MMTF 128",
+                    "Low Entropy Single", "Low Entropy Short",
+                    "Multi MTF 128 Bit (Transform)",
+                    "Bit MMTF 16 Bit (Transform)"]
+
+
+def test_host_fuzz_codecs_span_every_family():
+    assert ({spec.by_name(n).family for n in HOST_FUZZ_CODECS}
+            == set(spec.Family) - {spec.Family.MEMCPY})
+
+
+@pytest.mark.parametrize("name", HOST_FUZZ_CODECS)
+def test_host_fuzz_lane_equal_original(name):
+    """fuzz_one on the same seeded inputs: both clean."""
+    for data in fuzz.random_inputs(4, 2):
+        got = fuzz.fuzz_one(data, spec.by_name(name))
+        assert got == jfuzz.fuzz_one(data, jspec.by_name(name))
+        assert got is None
+
+
+def _planted(kind: str, reg):
+    """A codec of ``reg`` that fails the host lane in one way."""
+    compress, decompress = reg.compress, reg.decompress
+
+    def writes_input(data, s):
+        out = compress(bytes(data), s)
+        data[len(data) // 2] ^= 1
+        return out
+
+    def wrong_bytes(buf, s):
+        out = decompress(buf, s)
+        return out[:-1] + bytes([out[-1] ^ 1])
+
+    return {"writes_input": ("compress", writes_input),
+            "empty": ("compress", lambda data, s: b""),
+            "wrong_bytes": ("decompress", wrong_bytes)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["writes_input", "empty", "wrong_bytes"])
+def test_host_fuzz_lane_reports_like_original(kind, tmp_path, monkeypatch):
+    """A codec that writes into its input, returns nothing or decodes the
+    wrong bytes: both lanes give the same error string, and ``run`` logs
+    the same failure and saves the same input."""
+    for reg in (registry, jregistry):
+        monkeypatch.setattr(reg, *_planted(kind, reg))
+    monkeypatch.chdir(tmp_path)
+    data = next(fuzz.random_inputs(4, 1))
+    got = fuzz.fuzz_one(bytearray(data), spec.by_name("8 Bit"))
+    assert got is not None
+    assert got == jfuzz.fuzz_one(bytearray(data), jspec.by_name("8 Bit"))
+    saved = []
+    for mod, sp in ((fuzz, spec), (jfuzz, jspec)):
+        logs = []
+        assert mod.run([bytearray(data)], [sp.by_name("8 Bit")],
+                       log=logs.append) == 1
+        saved.append((logs, (tmp_path / "fuzz-failure.bin").read_bytes()))
+    assert saved[0] == saved[1]
+    assert got in saved[0][0][0]
+
+
+@pytest.mark.parametrize("argv", [[], ["--skip-slow"],
+                                  ["--codec", "8 Bit", "--codec", "memcpy",
+                                   "--codec", "Low Entropy"]])
+def test_host_fuzz_main_picks_the_original_codecs(argv, monkeypatch):
+    """Without --device, main fuzzes the codecs the JAX package's main
+    does (every one but memcpy; --skip-slow drops MMTF and greedy)."""
+    picked = []
+    for mod in (fuzz, jfuzz):
+        monkeypatch.setattr(mod, "run", lambda inputs, specs: picked.append(
+            [s.name for s in specs]) or 0)
+        assert mod.main(argv + ["--iterations", "0"]) == 0
+    assert picked[0] == picked[1] and picked[0]
