@@ -23,7 +23,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    192 KiB and 256 KiB blocks); a 4 MiB one-block stream through both; a
    capacity of exactly the commands (padding by the tail tile), one less
    raising.  Each byte-equal to its plain torch version on the same card
-   tensors.
+   tensors.  The section-level decoders (decode_deep_device on the deep
+   sections, decode_payload_device on the flat ones, the JAX package's
+   argument lists) equal dispatch_packed and the plain versions.
 4. main paths.  Compress: api.compress(backend="kernel", device="cuda") on
    the 64 MiB DCT corpus ("8 Bit" and "8 Bit Single"), the random and bwt
    rows, "32 Bit (Symbol)" and "24 Bit (Symbol)" on 16 MiB + 1001 bytes
@@ -37,7 +39,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    plain version and of the wrappers; dispatch_packed on shipped sections
    (deep and flat) as device time, by CUDA events and with its plain
    version, and its device operations per call (nodes of a captured CUDA
-   graph: at most 4);
+   graph: at most 4), and the two section decoders as device time;
    the wall time of one whole decompress (64 MiB DCT, and the 32-bit width
    row with the device re-interleave); the compress wall of the 64 MiB DCT
    corpus split into its stages.
@@ -73,7 +75,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     this process (world size 1) compresses 16 MiB the same way, so the
     exchange runs on CUDA tensors once.  Logs the two-rank wall beside the
     single-process compress wall.  (c) with two cards or more: NCCL at
-    world size min(4, cards), one rank per card (fresh interpreters), on
+    world size min(4, cards), one rank per card (fresh interpreters that
+    join by coordinator address, initialize_multihost(coordinator=...)), on
     make_dataset(64 * world) (weak scaling) and the 64 MiB corpus (strong
     scaling), 256 KiB blocks: every rank's compress_distributed at its
     default device must equal the native container, which decompresses
@@ -84,8 +87,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     (slowest rank, best of 2 after a warm-up) at world 1 and at world N,
     each rank's split (encode with its D2H and local statistics |
     statistics and vote exchange | serialize | parts gather | assemble)
-    and the bytes each collective sent; then dryrun_multichip on NCCL,
-    and its refusal of more ranks than cards.
+    and the bytes each collective sent.  With four cards the 64 MiB run
+    again as two emulated hosts of two cards (ranks 0-1 see the first two
+    cards, ranks 2-3 the next two, each with LOCAL_RANK and
+    LOCAL_WORLD_SIZE 2: rank_card's LOCAL_RANK path).  Then
+    dryrun_multichip on NCCL, and its refusal of more ranks than cards.
+    (d) one process, every card (never skipped: 1 card, or all visible):
+    make_mesh() with no group is the LocalMesh of the visible cards;
+    compress_distributed of the 64 MiB corpus on it equals the native
+    container (sha256) and launches hrt1_encode once a card; pipeline_step
+    on its blocks returns them on card 0 with exclusive-prefix offsets and
+    launches hrt1_encode and hrt1_decode once a card; both kernels equal
+    their plain versions on every card's share.  Logs the wall (best of 2
+    after a warm-up) on 1 card and on all, split (encode on all cards |
+    D2H | serialize), beside api.compress's and (c)'s.
 11. device fuzz lane: fuzz.run_device on the card over 20 inputs (10
     random, 10 iterative) x the 10 DEVICE_FUZZ_CODECS: round trips, 4
     mutated and 3 truncated containers each; no failure, and hrt1_decode
@@ -110,7 +125,9 @@ from __future__ import annotations
 import hashlib
 import itertools
 import json
+import os
 import pathlib
+import socket
 import subprocess
 import sys
 import tempfile
@@ -392,6 +409,28 @@ def plain_dispatch(pk: dict, arrs: dict):
         arrs["syms"] if sym is None else sym, count, lit_len, arrs["lits"],
         arrs["n_cmds"], arrs["n_lits"], arrs["block_len"],
         block_size=pk["info"].block_size, out_words=True)
+
+
+def section_decode(pk: dict, arrs: dict):
+    """The pack's sections through the section-level decoder of its layout,
+    called with the JAX package's argument lists: decode_deep_device
+    (returns the words and the bad flags) or decode_payload_device (bad
+    None); int32 words."""
+    info = pk["info"]
+    kw = dict(cnt_bits=pk["cnt_bits"], lit_bits=pk["lit_bits"],
+              capacity=pk["capacity"], block_size=info.block_size,
+              min_count=info.min_count, out_words=True)
+    if info.deep:
+        return unpack_device.decode_deep_device(
+            *(arrs[k] for k in ("cnts_raw", "cnt_ovf_raw", "lls_raw",
+                                "ll_ovf_raw", "lut_raw", "miss_raw", "dict7",
+                                "lits", "n_cmds", "n_lits", "block_len",
+                                "n_cnt_ovf", "n_ll_ovf", "n_miss")),
+            cnt_ovf_bits=pk["cnt_ovf_bits"], ll_ovf_bits=pk["ll_ovf_bits"],
+            **kw)
+    return unpack_device.decode_payload_device(
+        *(arrs[k] for k in ("cnts_raw", "lls_raw", "syms", "lits", "n_cmds",
+                            "n_lits", "block_len")), **kw), None
 
 
 def random_sections(widths, cap: int, seed: int, dev, nb: int = 5):
@@ -792,33 +831,31 @@ def mmtf_phase(dev, card: str):
 # phases 10-11: distribution, device fuzz lane
 # ---------------------------------------------------------------------------
 
+def kernel_errs(xd, tl, B: int, cap: int) -> dict:
+    """hrt1_encode and hrt1_decode against their plain versions on the
+    blocks ``xd`` (lengths ``tl``) on their card: max |error| of each."""
+    ek = encode_sup.encode_blocks_kernel(xd, tl, capacity=cap, min_count=6)
+    pb = device.encode_blocks(xd, tl, capacity=cap, min_count=6)
+    errs = {"hrt1_encode": max(max_abs_err(a, b) for a, b in zip(ek, (
+        pb.sym, pb.count, pb.lit_len, pb.lits, pb.n_cmds, pb.n_lits))),
+            "hrt1_decode": max_abs_err(
+        decode_sup.decode_columns_device(*ek, tl, block_size=B),
+        decode_sup.decode_columns_plain(*ek, tl, block_size=B))}
+    torch.cuda.synchronize(xd.device)
+    return errs
+
+
 # what the rank scripts of phase 10 share: argv WORKDIR WORLD RANK, and
-# kernel_errs, both kernels against their plain versions on a rank's blocks
-# (launches made after the rank has read its counts)
+# kernel_errs (launches made after the rank has read its counts)
 RANK_PRELUDE = r"""
-import hashlib, json, pickle, sys, time
+import hashlib, json, os, pickle, sys, time
 import numpy as np
 import torch
 import torch.distributed as tdist
+from chip_smoke import kernel_errs
 from hypersonic_rle_kit_tpu_torch import api
-from hypersonic_rle_kit_tpu_torch.ops import (decode_sup, device, encode_sup,
-                                              planar, transfer)
+from hypersonic_rle_kit_tpu_torch.ops import planar, transfer
 from hypersonic_rle_kit_tpu_torch.parallel import dist
-
-def err(a, b):
-    assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape)
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-
-def kernel_errs(xd, tl, B, cap):
-    ek = encode_sup.encode_blocks_kernel(xd, tl, capacity=cap, min_count=6)
-    pb = device.encode_blocks(xd, tl, capacity=cap, min_count=6)
-    errs = {"hrt1_encode": max(err(a, b) for a, b in zip(ek, (
-        pb.sym, pb.count, pb.lit_len, pb.lits, pb.n_cmds, pb.n_lits))),
-            "hrt1_decode": err(
-        decode_sup.decode_columns_device(*ek, tl, block_size=B),
-        decode_sup.decode_columns_plain(*ek, tl, block_size=B))}
-    torch.cuda.synchronize()
-    return errs
 
 workdir, world, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 """
@@ -830,8 +867,9 @@ if not torch.cuda.is_available():
     raise SystemExit("rank: torch.cuda.is_available() is false")
 dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
-dist.initialize_multihost(tdist.FileStore(f"{workdir}/store", world), world,
-                          rank, backend="gloo", timeout=300)
+dist.initialize_multihost(num_processes=world, process_id=rank,
+                          backend="gloo", timeout=300,
+                          store=tdist.FileStore(f"{workdir}/store", world))
 mesh = dist.make_mesh()
 data = np.fromfile(f"{workdir}/data.bin", np.uint8)
 B = 1 << 18
@@ -923,8 +961,8 @@ def dist_phase(dct: bytes, native_blob: bytes, dev, card: str,
     api.reset_kernel_launch_counts()
     with tempfile.TemporaryDirectory() as wd:
         dist.initialize_multihost(
-            torch.distributed.FileStore(f"{wd}/store", 1), 1, 0,
-            backend="nccl")
+            num_processes=1, process_id=0, backend="nccl",
+            store=torch.distributed.FileStore(f"{wd}/store", 1))
         torch.distributed.all_gather = spy
         try:
             got = dist.compress_distributed(raw, dist.make_mesh(), device=dev,
@@ -947,11 +985,14 @@ def dist_phase(dct: bytes, native_blob: bytes, dev, card: str,
 
 
 # one NCCL rank of phase 10c, on its own card (initialize_multihost makes
-# it the current device); the streams are WORKDIR/<name>.bin, and
+# it the current device); the ranks meet at the address in
+# WORKDIR/coordinator, the streams are WORKDIR/<name>.bin, and
 # WORKDIR/streams.json maps each name to the sha256 of its native container
 NCCL_RANK = RANK_PRELUDE + r"""
-dist.initialize_multihost(tdist.FileStore(f"{workdir}/store", world), world,
-                          rank, backend="nccl", timeout=600)
+with open(f"{workdir}/coordinator") as f:
+    coordinator = f.read()
+dist.initialize_multihost(coordinator, world, rank, backend="nccl",
+                          timeout=600)
 card = torch.cuda.current_device()
 mesh, one = dist.make_mesh(), dist.make_mesh(1)
 streams = json.loads(open(f"{workdir}/streams.json").read())
@@ -983,7 +1024,10 @@ def compress(data, m):
     blob = dist.compress_distributed(data, m, block_size=B)
     return time.perf_counter() - t0, blob
 
-res = {"card": card, "name": torch.cuda.get_device_name(card)}
+props = torch.cuda.get_device_properties(card)
+res = {"card": card, "name": props.name,
+       "uuid": str(getattr(props, "uuid", "")),
+       "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
 for name, want in streams.items():
     data = np.fromfile(f"{workdir}/{name}.bin", np.uint8)
     r = res[name] = {}
@@ -1053,48 +1097,49 @@ tdist.destroy_process_group()
 """
 
 
-def nccl_phase(dct: bytes, native_blob: bytes, dev, card: str) -> dict:
-    """(c) NCCL at world size min(4, cards), one rank per card: weak
-    scaling on make_dataset(64 * world) and strong scaling on the 64 MiB
-    corpus, 256 KiB blocks.  Every rank's compress_distributed at its
-    default device == native, the round trip on card 0, pipeline_step
-    round trips and exclusive-prefix offsets, both kernels launched on
-    every rank and equal to their plain versions there, every all_gather
-    on the rank's own card; the walls at world 1 and N, each rank's split
-    and the bytes of each collective; then graft_entry's NCCL dry run.
-    Returns the max |error| of hrt1_encode and hrt1_decode over the
-    ranks."""
-    world = min(4, torch.cuda.device_count())
-    torch.cuda.empty_cache()
-    t_phase = time.perf_counter()
-    cards = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    log(f"distribution (c): cards {cards}")
-    weak = f"weak{64 * world}"
-    streams = {"strong64": dct,
-               weak: datasets.make_dataset(64 * world).tobytes()}
-    natives = {"strong64": native_blob,
-               weak: api.compress(streams[weak], "8 Bit", backend="native",
-                                  device="cpu")}
+def free_address() -> str:
+    """A ``host:port`` on this machine that nothing listens on now."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{sock.getsockname()[1]}"
+
+
+def nccl_ranks(streams: dict, natives: dict, world: int, dev, card: str,
+               layout: str, cards: list, rank_env=None) -> tuple[dict, float]:
+    """NCCL_RANK at world size ``world``, the ranks meeting at a coordinator
+    address, on ``streams`` (name -> bytes, 256 KiB blocks): every rank's
+    compress_distributed at its default device == the native container
+    (``natives``), rank 0's blob round-trips on card 0, every rank's
+    pipeline_step round-trips with exclusive-prefix offsets, both kernels
+    launched on every rank and equal to their plain versions there, rank r
+    on its card ``cards[r]`` (the index it sees) and on a card of its own,
+    every collective there.  Logs the walls at world 1 and N, each rank's
+    split and bytes.  Returns the max |error| of hrt1_encode and
+    hrt1_decode over the ranks, and the first stream's wall at world N."""
     with tempfile.TemporaryDirectory() as wd:
         for name, raw in streams.items():
             pathlib.Path(f"{wd}/{name}.bin").write_bytes(raw)
         pathlib.Path(f"{wd}/streams.json").write_text(json.dumps(
             {n: hashlib.sha256(b).hexdigest() for n, b in natives.items()}))
+        pathlib.Path(f"{wd}/coordinator").write_text(free_address())
         t0 = time.perf_counter()
         graft_entry.run_ranks([sys.executable, "-c", NCCL_RANK], world, wd,
-                              timeout=600)
+                              timeout=600, rank_env=rank_env)
         ranks_s = time.perf_counter() - t0
         res = [json.loads(pathlib.Path(f"{wd}/rank{r}.json").read_text())
                for r in range(world)]
         blobs = {n: pathlib.Path(f"{wd}/{n}.blob").read_bytes()
                  for n in streams}
-    if [x["card"] for x in res] != list(range(world)):
-        raise AssertionError(f"NCCL ranks on cards {[x['card'] for x in res]}")
-    on = ", ".join(f"{x['name']} cuda:{x['card']}" for x in res)
+    if [x["card"] for x in res] != cards:
+        raise AssertionError(f"NCCL ranks on cards {[x['card'] for x in res]}"
+                             f", want {cards}")
+    uuids = [x["uuid"] for x in res]
+    if all(uuids) and len(set(uuids)) != world:
+        raise AssertionError(f"two NCCL ranks on one card: {uuids}")
+    on = ", ".join(f"{x['name']} cuda:{x['card']} of {x['visible'] or 'all'}"
+                   for x in res)
     errs = dict.fromkeys(("hrt1_encode", "hrt1_decode"), 0)
+    walls = {}
     for name, raw in streams.items():
         if blobs[name] != natives[name]:
             raise AssertionError(f"{name}: rank 0's blob != native")
@@ -1113,7 +1158,7 @@ def nccl_phase(dct: bytes, native_blob: bytes, dev, card: str) -> dict:
                     raise AssertionError(f"{name} rank {r}: {k} != plain on "
                                          f"{x['shape']}: {x['errs'][k]}")
                 errs[k] = max(errs[k], x["errs"][k])
-            if {(c[2], c[3]) for c in x["calls"]} != {("cuda", r)}:
+            if {(c[2], c[3]) for c in x["calls"]} != {("cuda", cards[r])}:
                 raise AssertionError(f"{name} rank {r}: collectives on "
                                      f"{x['calls']}")
         sizes = np.concatenate([x["sizes"] for x in rs]).astype(np.int64)
@@ -1123,14 +1168,16 @@ def nccl_phase(dct: bytes, native_blob: bytes, dev, card: str) -> dict:
                                  f"the sizes")
         # a timed call's wall is its slowest rank's; best of the two after
         # the warm-up
-        wall = min(max(w) for w in zip(*(x["walls"][1:] for x in rs)))
+        wall = walls[name] = min(max(w) for w in zip(*(x["walls"][1:]
+                                                     for x in rs)))
         wall1 = min(rs[0]["walls1"][1:])
         mib = len(raw) >> 20
-        log(f"[{card}] distribution (c), NCCL world size {world}, one rank "
-            f"per card ({on}), {name} ({mib} MiB DCT, 256 KiB blocks, "
-            f"{mib // world} MiB a rank): compress_distributed wall {wall * 1e3:.1f} ms at world "
-            f"{world} vs {wall1 * 1e3:.1f} ms at world 1 (slowest rank, best "
-            f"of 2 after a warm-up) = {wall1 / wall:.2f}x")
+        log(f"[{card}] distribution (c), NCCL world size {world}, {layout} "
+            f"({on}), {name} ({mib} MiB DCT, 256 KiB blocks, "
+            f"{mib // world} MiB a rank): compress_distributed wall "
+            f"{wall * 1e3:.1f} ms at world {world} vs {wall1 * 1e3:.1f} ms "
+            f"at world 1 (slowest rank, best of 2 after a warm-up) = "
+            f"{wall1 / wall:.2f}x")
         for r, x in enumerate(rs):
             sent = {}
             for c in x["calls"]:
@@ -1141,12 +1188,56 @@ def nccl_phase(dct: bytes, native_blob: bytes, dev, card: str) -> dict:
                 f"{sent['all_gather'][:2]}, parts all_gather_object "
                 f"{sent['all_gather_object']}, pipeline_step sizes "
                 f"{sent['all_gather'][2:]}; launches {x['launches']}")
-    log(f"distribution (c): NCCL world size {world}: every rank's "
-        f"compress_distributed == native at its default device, round "
-        f"trips on card 0, pipeline_step round trips, offsets == exclusive "
-        f"prefix, hrt1_encode and hrt1_decode launched on every rank and == "
-        f"plain there, every collective on the rank's own card; ranks ran "
+    log(f"distribution (c): NCCL world size {world}, {layout}: every rank "
+        f"joined by coordinator address; every rank's compress_distributed "
+        f"== native at its default device, round trips on card 0, "
+        f"pipeline_step round trips, offsets == exclusive prefix, "
+        f"hrt1_encode and hrt1_decode launched on every rank and == plain "
+        f"there, every collective on the rank's own card; ranks ran "
         f"{ranks_s:.1f} s")
+    return errs, walls[next(iter(streams))]
+
+
+def two_hosts(r: int) -> dict:
+    """Rank r's environment as one of two emulated hosts of two cards:
+    ranks 0-1 see the first two cards, ranks 2-3 the next two, each with
+    its LOCAL_RANK and LOCAL_WORLD_SIZE (torchrun's names)."""
+    seen = os.environ.get("CUDA_VISIBLE_DEVICES", "0,1,2,3").split(",")
+    return {"CUDA_VISIBLE_DEVICES": ",".join(seen[2 * (r // 2):
+                                                  2 * (r // 2) + 2]),
+            "LOCAL_RANK": str(r % 2), "LOCAL_WORLD_SIZE": "2"}
+
+
+def nccl_phase(dct: bytes, native_blob: bytes, dev,
+               card: str) -> tuple[dict, float]:
+    """(c) NCCL at world size min(4, cards), one rank per card, joined by
+    coordinator address: weak scaling on make_dataset(64 * world) and
+    strong scaling on the 64 MiB corpus, 256 KiB blocks (nccl_ranks);
+    with four cards the strong run again as two emulated hosts of two
+    cards (rank_card's LOCAL_RANK path); then graft_entry's NCCL dry run.
+    Returns the max |error| of hrt1_encode and hrt1_decode over the ranks
+    and the 64 MiB wall at world N."""
+    world = min(4, torch.cuda.device_count())
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    log(f"distribution (c): cards {cards}")
+    weak = f"weak{64 * world}"
+    streams = {"strong64": dct,
+               weak: datasets.make_dataset(64 * world).tobytes()}
+    natives = {"strong64": native_blob,
+               weak: api.compress(streams[weak], "8 Bit", backend="native",
+                                  device="cpu")}
+    errs, wall = nccl_ranks(streams, natives, world, dev, card,
+                            "one host, a rank per card", list(range(world)))
+    if world == 4:
+        e2, _ = nccl_ranks({"strong64": dct}, {"strong64": native_blob}, 4,
+                           dev, card, "two emulated hosts of two cards",
+                           [0, 1, 0, 1], rank_env=two_hosts)
+        errs = {k: max(v, e2[k]) for k, v in errs.items()}
     try:
         graft_entry.dryrun_multichip(torch.cuda.device_count() + 1, "cuda")
     except ValueError as e:
@@ -1157,7 +1248,117 @@ def nccl_phase(dct: bytes, native_blob: bytes, dev, card: str) -> dict:
                              "cards")
     graft_entry.dryrun_multichip(world, "cuda")
     log(f"distribution (c) in {time.perf_counter() - t_phase:.1f} s")
-    return errs
+    return errs, wall
+
+
+def mesh_split(data: bytes, mesh, B: int, reps: int = 2) -> dict:
+    """compress_distributed on a LocalMesh in its stages, each closed by
+    a synchronisation of every card: blocks padded to the mesh, copied to
+    and encoded on every card (the launches, then one check) | the shares'
+    columns to the host | one serialize.  Best of ``reps`` per stage (ms)
+    after a warm-up; raises unless the bytes equal compress_distributed's."""
+    cap = planar.capacity_for(B, 6)
+    arr = np.frombuffer(data, np.uint8)
+    real_nb = max(1, -(-arr.size // B))
+    best = None
+    for i in range(reps + 1):           # the first call warms up
+        t = [time.perf_counter()]
+        x, lens = dist._padded_blocks(arr, B, mesh.size)
+        pbs = dist._encode_shares(x, lens, mesh, capacity=cap, min_count=6)
+        for d in mesh.devices:
+            torch.cuda.synchronize(d)
+        t.append(time.perf_counter())
+        cols = [c[:real_nb] for c in dist._shares_to_host(pbs)]
+        t.append(time.perf_counter())
+        blob = container.serialize_blocks(0, arr.size, B, 6, *cols)
+        t.append(time.perf_counter())
+        ms = np.diff(t) * 1e3
+        if i:
+            best = ms if best is None else np.minimum(best, ms)
+        del pbs
+    if blob != dist.compress_distributed(data, mesh, device=mesh.devices[0],
+                                         block_size=B):
+        raise AssertionError("LocalMesh stages != compress_distributed")
+    return dict(zip(("encode_all_cards", "d2h", "serialize"), best.tolist()))
+
+
+def mesh_phase(dct: bytes, native_blob: bytes, card: str,
+               single_wall: float, rank_wall: float | None) -> tuple:
+    """(d) one process, every card: dist.make_mesh() with no process group
+    is the LocalMesh of the visible cards.  compress_distributed of the
+    64 MiB corpus (256 KiB blocks) == native (sha256), launching
+    hrt1_encode once on each card; pipeline_step on its blocks returns
+    them on card 0 with exclusive-prefix offsets, launching hrt1_encode
+    and hrt1_decode once on each card; on each card both kernels equal
+    their plain versions on its share.  Logs the wall (best of 2 after a
+    warm-up) and its split beside api.compress's and phase 10c's.  Returns
+    (launches of the counted path, max |error| of each kernel)."""
+    B = 1 << 18
+    n_cards = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    mesh = dist.make_mesh()
+    if not isinstance(mesh, dist.LocalMesh) or mesh.size != n_cards:
+        raise AssertionError(f"make_mesh() without a group: {mesh}")
+    want = hashlib.sha256(native_blob).hexdigest()
+    api.reset_kernel_launch_counts()
+    blob = dist.compress_distributed(dct, mesh, block_size=B)
+    launches = api.kernel_launch_counts()
+    if hashlib.sha256(blob).hexdigest() != want:
+        raise AssertionError("LocalMesh compress_distributed != native")
+    if launches["hrt1_encode"] != n_cards:
+        raise AssertionError(f"compress_distributed on {n_cards} cards "
+                             f"launched hrt1_encode {launches['hrt1_encode']}"
+                             f" times")
+    x, lens = api._to_blocks(np.frombuffer(dct, np.uint8), B)
+    cap = planar.capacity_for(B, 6)
+    api.reset_kernel_launch_counts()
+    y, offsets, sizes = dist.pipeline_step(x, lens, capacity=cap,
+                                           min_count=6, mesh=mesh)
+    step = api.kernel_launch_counts()
+    if y.device != mesh.devices[0] or not torch.equal(
+            y.cpu(), torch.from_numpy(x)):
+        raise AssertionError("LocalMesh pipeline_step != its blocks on "
+                             "card 0")
+    s64 = sizes.to(torch.int64)
+    if not torch.equal(offsets, torch.cumsum(s64, 0) - s64):
+        raise AssertionError("LocalMesh offsets != exclusive prefix")
+    if step["hrt1_encode"] != n_cards or step["hrt1_decode"] != n_cards:
+        raise AssertionError(f"pipeline_step on {n_cards} cards: {step}")
+    del y
+    for k in ("hrt1_encode", "hrt1_decode"):
+        launches[k] += step[k]
+    errs = dict.fromkeys(("hrt1_encode", "hrt1_decode"), 0)
+    per = x.shape[0] // n_cards
+    for i, d in enumerate(mesh.devices):
+        share = slice(i * per, (i + 1) * per)
+        e = kernel_errs(transfer.to_device(x[share], d),
+                        transfer.to_device(lens[share], d), B, cap)
+        if any(e.values()):
+            raise AssertionError(f"{d}: kernels != plain on its share: {e}")
+        errs = {k: max(v, e[k]) for k, v in errs.items()}
+    log(f"distribution (d), one process, every card ({n_cards} x "
+        f"{torch.cuda.get_device_name(0)}): compress_distributed(dct64, "
+        f"make_mesh()) == native; pipeline_step round trip on cuda:0, "
+        f"offsets == exclusive prefix; launches {dict(launches)} (each "
+        f"kernel once a card a call); hrt1_encode and hrt1_decode == plain "
+        f"on every card's {per} blocks")
+    walls = {}
+    for m in sorted({1, n_cards}):
+        sub = dist.make_mesh(m)
+        dist.compress_distributed(dct, sub, block_size=B)   # warm-up
+        walls[m] = best_wall(lambda: dist.compress_distributed(
+            dct, sub, block_size=B), mesh.devices[0], reps=2)
+        split = mesh_split(dct, sub, B)
+        log(f"[{card}] LocalMesh compress_distributed (64 MiB DCT, 256 KiB "
+            f"blocks) on {m} card(s): wall {walls[m] * 1e3:.1f} ms (best of "
+            f"2 after a warm-up); split (ms, best of 2 after a warm-up): "
+            + " | ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    log(f"[{card}] compress wall (64 MiB DCT): LocalMesh of {n_cards} "
+        f"card(s) {walls[n_cards] * 1e3:.1f} ms; api.compress(backend="
+        f"'kernel') {single_wall * 1e3:.1f} ms; phase 10c, a rank per card "
+        + ("not run (one card)" if rank_wall is None
+           else f"{rank_wall * 1e3:.1f} ms (slowest rank)"))
+    return launches, errs
 
 
 def fuzz_phase(dev, card: str) -> None:
@@ -1248,6 +1449,16 @@ def main() -> int:
         p = container.pack_for_device(b)
         packs[name] = (p, unpack_device.ship_packed(p, dev))
     err_k2 = check_unpack_cases(dev, packs)
+    for name, pa in packs.items():
+        words, bad = section_decode(*pa)
+        e = max(max_abs_err(words, unpack_device.dispatch_packed(
+            *pa, out_words=True)), max_abs_err(words, plain_dispatch(*pa)))
+        if e or (bad is not None and int(bad.abs().sum())):
+            raise AssertionError(f"section decoder of {name} != "
+                                 f"dispatch_packed / plain: err={e}")
+    log("  decode_deep_device (dct64 deep) and decode_payload_device "
+        "(dct64 flat) == dispatch_packed == their plain versions; no bad "
+        "flag")
     pk, arrs = packs["dct64"]
     args, kw = unpack_device.section_args(pk, arrs)
     fargs, fkw = unpack_device.section_args(*packs["dct64_flat"])
@@ -1323,7 +1534,9 @@ def main() -> int:
             *fargs, **fkw),
         "hrt1_encode": lambda: encode_sup._launch(xd, tl, None, cap, 6),
         **{f"dispatch {n}": (lambda pa=pa: unpack_device.dispatch_packed(
-            *pa, out_words=True)) for n, pa in packs.items()}})
+            *pa, out_words=True)) for n, pa in packs.items()},
+        **{f"sections {n}": (lambda pa=pa: section_decode(*pa))
+           for n, pa in packs.items()}})
     kt.update(cuda_ms({
         "decode_plain": lambda: decode_sup.decode_columns_plain(
             *dargs, block_size=B, out_words=True),
@@ -1384,6 +1597,10 @@ def main() -> int:
             f"{mb / kt[f'dispatch {name}']:.2f} GB/s; CUDA events "
             f"{dt['kernels']:.4f} ms = {mb / dt['kernels']:.2f} GB/s; plain "
             f"{dt['plain']:.4f} ms = {mb / dt['plain']:.2f} GB/s")
+    log(f"[{card}] section decoders, device time: decode_deep_device "
+        f"(dct64 deep) {kt['sections dct64']:.4f} ms, decode_payload_device "
+        f"(dct64 flat) {kt['sections dct64_flat']:.4f} ms; dispatch_packed "
+        f"{kt['dispatch dct64']:.4f} / {kt['dispatch dct64_flat']:.4f} ms")
     for name in ("dct64", "dct16_w32"):
         b, raw = rows[name]
         w = best_wall(lambda: api.decompress(b, device=dev), dev)
@@ -1426,13 +1643,20 @@ def main() -> int:
     for k, e in dist_phase(dct, native_blobs["dct64"], dev, card,
                            wk).items():
         errs[k] = max(errs[k], e)
+    rank_wall = None
     if torch.cuda.device_count() >= 2:
-        for k, e in nccl_phase(dct, native_blobs["dct64"], dev,
-                               card).items():
+        nccl_errs, rank_wall = nccl_phase(dct, native_blobs["dct64"], dev,
+                                          card)
+        for k, e in nccl_errs.items():
             errs[k] = max(errs[k], e)
     else:
         log("distribution (c): skipped, one card (NCCL needs a card per "
             "rank)")
+    mesh_launches, mesh_errs = mesh_phase(dct, native_blobs["dct64"], card,
+                                          wk, rank_wall)
+    for k, e in mesh_errs.items():
+        errs[k] = max(errs[k], e)
+        launches[k] += mesh_launches[k]
     fuzz_phase(dev, card)
 
     # ---- 12. the port's bench at its defaults ----

@@ -17,7 +17,8 @@ behaviour (the tests hold each copy against its original):
   the word microbenchmark.
 - :mod:`~hypersonic_rle_kit_tpu_torch.api` -- ``compress`` / ``decompress``.
 - :mod:`~hypersonic_rle_kit_tpu_torch.parallel` -- the block axis over
-  ``torch.distributed`` ranks (size exchange, ordered reassembly).
+  every card of one process (a ``LocalMesh``) or over ``torch.distributed``
+  ranks (size exchange, ordered reassembly).
 - :mod:`~hypersonic_rle_kit_tpu_torch.graft_entry`,
   :mod:`~hypersonic_rle_kit_tpu_torch.fuzz`,
   :mod:`~hypersonic_rle_kit_tpu_torch.bench_cli` -- the decode step and the

@@ -37,6 +37,13 @@ kernel_launch_counts = _kernels.launch_counts
 reset_kernel_launch_counts = _kernels.reset_launch_counts
 
 
+def kernel_fallback_count() -> int:
+    """Always 0: the port has no fallback from a kernel to another decoder
+    (the JAX package counts its kernel -> XLA capacity fallbacks here); a
+    kernel error propagates."""
+    return 0
+
+
 def hrt1_params(cspec: "spec_mod.CodecSpec"):
     """Map a reference codec spec onto the HRT1 pipeline's parameters:
     ``(width_bytes, default_block_size, min_count, single)``.
@@ -151,10 +158,21 @@ def _columns_to_host(sym, count, lit_len, lits, n_cmds, n_lits) -> list:
     """Device columns -> numpy columns for ``container.serialize_blocks``,
     which reads only ``[:n_cmds]`` / ``[:n_lits]`` of a row: the rows cross
     trimmed to the widest block's counts."""
-    nc, nl = to_host(n_cmds, n_lits)
-    c, m = max(int(nc.max()), 1), max(int(nl.max()), 1)
-    return to_host(sym[:, :c], count[:, :c], lit_len[:, :c],
-                   lits[:, :m]) + [nc, nl]
+    return _shares_to_host([(sym, count, lit_len, lits, n_cmds, n_lits)])
+
+
+def _shares_to_host(shares) -> list:
+    """:func:`_columns_to_host` of several shares of the block axis (each
+    ``(sym, count, lit_len, lits, n_cmds, n_lits)``, on any devices), their
+    rows concatenated in order and trimmed to the widest block of all;
+    every copy queued before one synchronisation of each card."""
+    counts = to_host(*(t for cols in shares for t in cols[4:]))
+    nc, nl = np.concatenate(counts[0::2]), np.concatenate(counts[1::2])
+    c, m = max(int(nc.max(initial=0)), 1), max(int(nl.max(initial=0)), 1)
+    rows = to_host(*(t for sym, count, lit_len, lits, _, _ in shares
+                     for t in (sym[:, :c], count[:, :c], lit_len[:, :c],
+                               lits[:, :m])))
+    return [np.concatenate(rows[i::4]) for i in range(4)] + [nc, nl]
 
 
 def _encode_on_device(x: np.ndarray, lens: np.ndarray, w: int, cap: int,

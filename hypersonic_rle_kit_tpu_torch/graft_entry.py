@@ -51,12 +51,14 @@ def entry(device="cuda"):
     return fn, tuple(decode_sup.columns_to_device(cols + [lens], device))
 
 
-def run_ranks(cmd: list[str], world: int, workdir, *,
-              timeout: float) -> list[str]:
+def run_ranks(cmd: list[str], world: int, workdir, *, timeout: float,
+              rank_env=None) -> list[str]:
     """Run ``cmd + [workdir, world, rank]`` for each rank, each a fresh
     interpreter (never a fork of this process, which may hold a CUDA
-    context), with the repository on ``PYTHONPATH``.  The ranks meet
-    through a FileStore they create at ``workdir/store``.
+    context), with the repository on ``PYTHONPATH`` and, where
+    ``rank_env(rank)`` is given, its variables (a rank's visible cards
+    and ``LOCAL_RANK``, say, to lay the ranks out as several hosts).  The
+    ranks meet where ``cmd`` says, e.g. a FileStore at ``workdir/store``.
 
     Returns each rank's output (stdout and stderr).  Raises RuntimeError
     if a rank exits non-zero (the ranks still running, which would wait
@@ -73,7 +75,8 @@ def run_ranks(cmd: list[str], world: int, workdir, *,
         for r in range(world):
             with open(logs[r], "w") as f:
                 procs.append(subprocess.Popen(
-                    [*cmd, str(workdir), str(world), str(r)], env=env,
+                    [*cmd, str(workdir), str(world), str(r)],
+                    env={**env, **(rank_env(r) if rank_env else {})},
                     cwd=_REPO, stdout=f, stderr=subprocess.STDOUT))
         deadline = time.monotonic() + timeout
         while True:
@@ -129,8 +132,9 @@ def _dryrun_rank(device: str, workdir: str, world: int, rank: int) -> None:
 
     torch.set_num_threads(1)
     backend = "nccl" if device == "cuda" else "gloo"
-    dist.initialize_multihost(tdist.FileStore(f"{workdir}/store", world),
-                              world, rank, backend=backend)
+    dist.initialize_multihost(
+        num_processes=world, process_id=rank, backend=backend,
+        store=tdist.FileStore(f"{workdir}/store", world))
     if device == "cuda":        # the rank's card, made current on joining
         dev = torch.device("cuda", torch.cuda.current_device())
         label = torch.cuda.get_device_name(dev)

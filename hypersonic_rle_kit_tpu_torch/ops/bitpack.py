@@ -3,12 +3,13 @@
 Port of hypersonic_rle_kit_tpu/ops/bitpack.py (``packed_size``,
 ``pack_device``, ``unpack_device``; XLA there, no Pallas kernel).  Layout:
 value ``k`` of a stream occupies bits ``[k*w, (k+1)*w)``, little-endian
-within each byte.  The numpy goldens ``pack_np`` / ``unpack_np`` stay in
-the JAX package (the tests compare with them).
+within each byte.  ``pack_np`` / ``unpack_np`` are the port's copies of
+the JAX package's numpy goldens.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _U8 = torch.uint8
@@ -51,3 +52,22 @@ def unpack_device(packed: torch.Tensor, *, width: int,
     bits = bits.reshape(*lead, m * 8)[..., :n_values * width]
     bits = bits.reshape(*lead, n_values, width)
     return (bits * _weights(width, packed.device)).sum(-1).to(_U8)
+
+
+# numpy goldens -------------------------------------------------------------
+
+def pack_np(x, width: int):
+    x = np.asarray(x, np.uint8)
+    n = x.shape[-1]
+    bits = ((x[..., None] >> np.arange(width, dtype=np.uint8)) & 1)
+    groups = bits.reshape(*x.shape[:-1], n * width // 8, 8)
+    return (groups << np.arange(8, dtype=np.uint8)).sum(-1).astype(np.uint8)
+
+
+def unpack_np(packed, width: int, n_values: int):
+    packed = np.asarray(packed, np.uint8)
+    m = packed.shape[-1]
+    bits = ((packed[..., None] >> np.arange(8, dtype=np.uint8)) & 1)
+    bits = bits.reshape(*packed.shape[:-1], m * 8)[..., : n_values * width]
+    bits = bits.reshape(*packed.shape[:-1], n_values, width)
+    return (bits << np.arange(width, dtype=np.uint8)).sum(-1).astype(np.uint8)

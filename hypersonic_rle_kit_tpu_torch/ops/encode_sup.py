@@ -75,19 +75,16 @@ def _launch(x, block_len, only_sym, capacity: int, min_count: int):
     return sym, count, lit_len, lits, n_cmds, n_lits
 
 
-def encode_blocks_kernel(x: torch.Tensor, block_len: torch.Tensor, *,
+def encode_blocks_launch(x: torch.Tensor, block_len: torch.Tensor, *,
                          capacity: int, min_count: int = 6,
                          only_sym: torch.Tensor | None = None):
-    """Encode ``[nb, B]`` uint8 blocks into planar columns.
-
-    ``block_len`` i32 ``[nb]`` (each in ``[0, B]``) gives the valid bytes of
-    each block; ``only_sym`` i32 ``[nb]`` (or None) restricts emission per
-    block to runs of that byte (Single; a negative entry lifts it).  Returns
-    ``(sym u8, count i32, lit_len i32 [nb, capacity], lits u8 [nb, B],
-    n_cmds i32 [nb], n_lits i32 [nb])``, zero past ``n_cmds`` / ``n_lits``.
-    Raises ValueError when a block needs more than ``capacity`` commands.
-    CUDA tensors launch the hrt1_encode kernel, CPU tensors take the plain
-    version; anything else raises."""
+    """The first half of :func:`encode_blocks_kernel`, which reads nothing
+    back: returns ``(columns, probe)``.  On a CUDA tensor it launches the
+    kernel and returns at once; ``probe`` is a ``[2]`` int32 tensor on the
+    card (the most commands of a block, the count of bad lengths) for
+    :func:`check_encoded`, so a caller driving several cards launches on
+    each before it reads any.  On a CPU tensor it runs the plain version,
+    raises its ValueErrors at once and returns ``probe`` None."""
     _check(x, block_len, only_sym, capacity, min_count)
     B = x.shape[1]
     bad_len = (block_len < 0) | (block_len > B)
@@ -99,15 +96,49 @@ def encode_blocks_kernel(x: torch.Tensor, block_len: torch.Tensor, *,
                            min_count=min_count, only_sym=only_sym)
         # contiguous like the kernel's outputs, so they feed hrt1_decode
         return tuple(c.contiguous() for c in (pb.sym, pb.count, pb.lit_len,
-                                              pb.lits, pb.n_cmds, pb.n_lits))
+                                              pb.lits, pb.n_cmds,
+                                              pb.n_lits)), None
     if dev.type != "cuda":
         raise ValueError(f"hrt1_encode runs on CUDA or CPU tensors, not {dev}")
     cols = _launch(x, block_len, only_sym, capacity, min_count)
-    # one synchronisation for both checks (the kernel clamps block_len)
-    most, n_bad = torch.stack([cols[4].max(), bad_len.sum(dtype=_I32)]
-                              ).tolist()
-    if n_bad:
-        raise ValueError(f"block_len outside [0, {B}]")
-    if most > capacity:
-        raise ValueError(f"{most - 1} runs exceed capacity {capacity}")
+    # the kernel clamps block_len, so its range is checked here
+    return cols, torch.stack([cols[4].max(), bad_len.sum(dtype=_I32)])
+
+
+def check_encoded(probes, *, capacity: int, block_size: int) -> None:
+    """The second half of :func:`encode_blocks_kernel`: one host read of
+    every launch's probe (None for the CPU's, already checked), gathered
+    on the first probe's card.  Raises ValueError where a block length
+    was outside ``[0, block_size]`` or a block needed more than
+    ``capacity`` commands."""
+    probes = [p for p in probes if p is not None]
+    if not probes:
+        return
+    dev = probes[0].device
+    for most, n_bad in torch.stack([p.to(dev, non_blocking=True)
+                                    for p in probes]).tolist():
+        if n_bad:
+            raise ValueError(f"block_len outside [0, {block_size}]")
+        if most > capacity:
+            raise ValueError(f"{most - 1} runs exceed capacity {capacity}")
+
+
+def encode_blocks_kernel(x: torch.Tensor, block_len: torch.Tensor, *,
+                         capacity: int, min_count: int = 6,
+                         only_sym: torch.Tensor | None = None):
+    """Encode ``[nb, B]`` uint8 blocks into planar columns.
+
+    ``block_len`` i32 ``[nb]`` (each in ``[0, B]``) gives the valid bytes of
+    each block; ``only_sym`` i32 ``[nb]`` (or None) restricts emission per
+    block to runs of that byte (Single; a negative entry lifts it).  Returns
+    ``(sym u8, count i32, lit_len i32 [nb, capacity], lits u8 [nb, B],
+    n_cmds i32 [nb], n_lits i32 [nb])``, zero past ``n_cmds`` / ``n_lits``.
+    Raises ValueError when a block needs more than ``capacity`` commands.
+    CUDA tensors launch the hrt1_encode kernel (one synchronisation for
+    the checks), CPU tensors take the plain version; anything else
+    raises."""
+    cols, probe = encode_blocks_launch(x, block_len, capacity=capacity,
+                                       min_count=min_count,
+                                       only_sym=only_sym)
+    check_encoded([probe], capacity=capacity, block_size=x.shape[1])
     return cols

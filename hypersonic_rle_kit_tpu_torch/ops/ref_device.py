@@ -30,6 +30,7 @@ from . import decode_sup, ref_walk as host_walk
 from .transfer import to_host
 
 DEFAULT_BLOCK = host_walk.DEFAULT_BLOCK
+parse_to_planar = host_walk.parse_to_planar
 _ROW = 128
 
 
@@ -60,7 +61,7 @@ def walk(buf: bytes, cspec, block_size: int = DEFAULT_BLOCK):
                                       cspec.lut or 0, usize, B)
         cols = None if res is None else res[0]
     if cols is None:                    # no library, or its walk failed
-        _, cols = host_walk.parse_to_planar(buf, it, usize, s, B)
+        _, cols = parse_to_planar(buf, it, usize, s, B)
     return cols, usize, s, B
 
 

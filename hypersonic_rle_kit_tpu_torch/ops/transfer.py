@@ -16,15 +16,15 @@ def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 def to_host(*ts: torch.Tensor) -> list[np.ndarray]:
     """Tensors -> numpy arrays; from CUDA through pinned buffers, every copy
-    queued before one synchronisation."""
-    outs, stream = [], None
+    queued before one synchronisation of each card's stream."""
+    outs, streams = [], {}
     for t in ts:
         if t.device.type == "cuda":
             host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             host.copy_(t, non_blocking=True)
-            stream = torch.cuda.current_stream(t.device)
+            streams[t.device] = torch.cuda.current_stream(t.device)
             t = host
         outs.append(t)
-    if stream is not None:
+    for stream in streams.values():
         stream.synchronize()
     return [t.numpy() for t in outs]

@@ -7,9 +7,12 @@ and literal bytes, 128-padded per block (parallel/container.pack_for_device,
 shared with the JAX package) -- in two buffers; on the device one kernel,
 hrt1_unpack_resolve (``csrc/hrt1_unpack_resolve.cu``), bit-unpacks the
 command columns, resolves the deep layout's escapes and symbol dictionary
-and computes its ``bad`` flags, and hrt1_decode (ops/decode_sup.py) decodes:
-a dispatch is four device operations (that launch, the zeroing of
-hrt1_decode's look-back state and its two grids).
+and computes its ``bad`` flags, and hrt1_decode (ops/decode_sup.py) decodes.
+The JAX package's section-level entry points are here with its arguments
+(``decode_payload_device`` for the flat layout, ``decode_deep_device`` for
+the deep one); ``dispatch_packed`` picks one for a pack, four device
+operations (the unpack launch, the zeroing of hrt1_decode's look-back state
+and its two grids).
 """
 
 from __future__ import annotations
@@ -284,25 +287,80 @@ def section_args(pk: dict, arrs: dict):
     return (arrs["cnts_raw"], arrs["lls_raw"], arrs["n_cmds"]), kw
 
 
+def decode_payload_device(cnts_raw, lls_raw, syms, lits, n_cmds, n_lits,
+                          block_len, *, cnt_bits: int, lit_bits: int,
+                          capacity: int, block_size: int, min_count: int,
+                          out_words: bool = False) -> torch.Tensor:
+    """Flat-layout payload sections -> decoded ``[nb, block_size]`` uint8
+    (or int32 words with ``out_words``): :func:`unpack_resolve` bit-unpacks
+    the command columns, then hrt1_decode (``decode_sup``) decodes.  CUDA
+    tensors launch the two kernels, CPU tensors take their plain versions;
+    the sections are ship_packed's (contiguous, int32 counts)."""
+    count, lit_len, _, _ = unpack_resolve(
+        cnts_raw, lls_raw, n_cmds, cnt_bits=cnt_bits, lit_bits=lit_bits,
+        capacity=capacity, min_count=min_count)
+    return decode_sup.decode_columns_device(
+        syms, count, lit_len, lits, n_cmds, n_lits, block_len,
+        block_size=block_size, out_words=out_words)
+
+
+def decode_deep_device(cnts_raw, cnt_ovf_raw, lls_raw, ll_ovf_raw, lut_raw,
+                       miss_raw, dict7, lits, n_cmds, n_lits, block_len,
+                       n_cnt_ovf=None, n_ll_ovf=None, n_miss=None, *,
+                       cnt_bits: int, lit_bits: int, cnt_ovf_bits: int,
+                       ll_ovf_bits: int, capacity: int, block_size: int,
+                       min_count: int, out_words: bool = False):
+    """Deep-layout payload sections -> ``(decoded bytes, bad flags)``:
+    :func:`unpack_resolve` resolves the two-tier count / lit_len escapes
+    and the symbol dictionary and misses, then hrt1_decode decodes.
+
+    ``bad[b] != 0`` marks a block whose stored escape / miss counts
+    (``n_cnt_ovf``, ``n_ll_ovf``, ``n_miss``; each may be None) disagree
+    with its escape population: a hostile container, which callers send to
+    the validating host reader (ContainerError).  CUDA tensors launch the
+    two kernels, CPU tensors take their plain versions."""
+    count, lit_len, sym, bad = unpack_resolve(
+        cnts_raw, lls_raw, n_cmds, cnt_ovf_raw, ll_ovf_raw, lut_raw,
+        miss_raw, dict7, n_cnt_ovf, n_ll_ovf, n_miss, cnt_bits=cnt_bits,
+        lit_bits=lit_bits, cnt_ovf_bits=cnt_ovf_bits,
+        ll_ovf_bits=ll_ovf_bits, capacity=capacity, min_count=min_count)
+    out = decode_sup.decode_columns_device(
+        sym, count, lit_len, lits, n_cmds, n_lits, block_len,
+        block_size=block_size, out_words=out_words)
+    return out, bad
+
+
 def dispatch_packed(pk: dict, arrs: dict, *, with_flags: bool = False,
                     out_words: bool = False):
     """Run the right device decode for a pack_for_device dict whose array
     members (``SECTION_KEYS`` subset) are already tensors in ``arrs``
-    (ship_packed): :func:`unpack_resolve`, then hrt1_decode.  Returns the
-    output tensor; with ``with_flags`` returns ``(out, bad)`` where ``bad``
-    is the deep layout's per-block sub-header-mismatch flag vector (None
-    for flat containers)."""
-    args, kw = section_args(pk, arrs)
-    count, lit_len, sym, bad = unpack_resolve(*args, **kw)
-    out = decode_sup.decode_columns_device(
-        arrs["syms"] if sym is None else sym, count, lit_len, arrs["lits"],
-        arrs["n_cmds"], arrs["n_lits"], arrs["block_len"],
-        block_size=pk["info"].block_size, out_words=out_words)
+    (ship_packed): :func:`decode_deep_device` or
+    :func:`decode_payload_device`.  Returns the output tensor; with
+    ``with_flags`` returns ``(out, bad)`` where ``bad`` is the deep
+    layout's per-block sub-header-mismatch flag vector (None for flat
+    containers)."""
+    info = pk["info"]
+    kw = dict(cnt_bits=pk["cnt_bits"], lit_bits=pk["lit_bits"],
+              capacity=pk["capacity"], block_size=info.block_size,
+              min_count=info.min_count, out_words=out_words)
+    if info.deep:
+        out, bad = decode_deep_device(
+            arrs["cnts_raw"], arrs["cnt_ovf_raw"], arrs["lls_raw"],
+            arrs["ll_ovf_raw"], arrs["lut_raw"], arrs["miss_raw"],
+            arrs["dict7"], arrs["lits"], arrs["n_cmds"], arrs["n_lits"],
+            arrs["block_len"], arrs.get("n_cnt_ovf"), arrs.get("n_ll_ovf"),
+            arrs.get("n_miss"), cnt_ovf_bits=pk["cnt_ovf_bits"],
+            ll_ovf_bits=pk["ll_ovf_bits"], **kw)
+    else:
+        out, bad = decode_payload_device(
+            arrs["cnts_raw"], arrs["lls_raw"], arrs["syms"], arrs["lits"],
+            arrs["n_cmds"], arrs["n_lits"], arrs["block_len"], **kw), None
     return (out, bad) if with_flags else out
 
 
-def decode_packed(pk: dict, *, device) -> np.ndarray:
-    """Host convenience wrapper: pack_for_device dict -> [nb, B] bytes.
+def decode_packed(pk: dict, *, device="cuda") -> np.ndarray:
+    """Host convenience wrapper: pack_for_device dict -> [nb, B] bytes,
+    decoded on ``device`` (the card unless the caller asks for the CPU).
 
     Raises ContainerError when the deep sub-header counts disagree with
     the actual escape population (hostile input)."""
@@ -363,12 +421,13 @@ def _host_buffer(parts, dtype, pin: bool) -> torch.Tensor:
     return buf
 
 
-def ship_packed(pk: dict, device) -> dict:
+def ship_packed(pk: dict, device="cuda") -> dict:
     """Host pack dict (container.pack_for_device, unchanged) -> the port's
-    section tensors on ``device``.  On CUDA the sections are concatenated
-    into two pinned host buffers, each sent with one non-blocking copy on
-    the current stream; the sections are views of the two device buffers
-    at the manifest's static offsets."""
+    section tensors on ``device`` (the card unless the caller asks for the
+    CPU).  On CUDA the sections are concatenated into two pinned host
+    buffers, each sent with one non-blocking copy on the current stream;
+    the sections are views of the two device buffers at the manifest's
+    static offsets."""
     dev = torch.device(device)
     pin = dev.type == "cuda"
     u8_parts, i32_parts, manifest = _ship_layout(pk)

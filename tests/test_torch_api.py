@@ -163,6 +163,19 @@ def test_device_entry_points_default_to_the_card(name):
             fn(*args)
 
 
+def test_jax_api_names():
+    """The JAX package's small public names: no kernel fallback is ever
+    taken, the reference walk's parse_to_planar, the mesh's block axis."""
+    from hypersonic_rle_kit_tpu.ops import ref_device as jref_device
+    from hypersonic_rle_kit_tpu_torch.ops import ref_walk
+    assert api.kernel_fallback_count() == japi.kernel_fallback_count() == 0
+    assert ref_device.parse_to_planar is ref_walk.parse_to_planar
+    assert inspect.signature(ref_device.parse_to_planar) == inspect.signature(
+        jref_device.parse_to_planar)
+    assert dist.BLOCK_AXIS == "blocks"
+    assert dist.make_mesh(devices=["cpu"]).axis == dist.BLOCK_AXIS
+
+
 def test_compress_bounds_and_empty():
     assert api.compress_bounds(10 ** 6) == japi.compress_bounds(10 ** 6)
     blob = api.compress(b"", device="cpu")

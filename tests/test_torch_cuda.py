@@ -582,6 +582,38 @@ def test_compress_on_every_card(dev):
         assert n["hrt1_encode"] == 1 and n["hrt1_decode"] >= 1, (card, n)
 
 
+def test_local_mesh_on_every_card(dev):
+    """One process, every visible card (the LocalMesh of make_mesh() with
+    no process group): compress_distributed equals the native bytes with
+    hrt1_encode launched once a card, and pipeline_step returns the blocks
+    on card 0 with exclusive-prefix offsets, hrt1_encode and hrt1_decode
+    launched once a card.  Runs on one card too."""
+    from hypersonic_rle_kit_tpu_torch.parallel import dist
+    if native.lib() is None:
+        pytest.skip("native runtime unavailable")
+    cards = torch.cuda.device_count()
+    mesh = dist.make_mesh()
+    assert isinstance(mesh, dist.LocalMesh) and mesh.size == cards
+    B = 1 << 16
+    raw = _dct(7 * B + 1001, 8)
+    want = api.compress(raw, "8 Bit", block_size=B, backend="native",
+                        device="cpu")
+    api.reset_kernel_launch_counts()
+    assert dist.compress_distributed(raw, mesh, block_size=B) == want
+    assert api.kernel_launch_counts()["hrt1_encode"] == cards
+    x = _dct(2 * cards * B, 9).reshape(2 * cards, B)
+    api.reset_kernel_launch_counts()
+    y, offsets, sizes = dist.pipeline_step(
+        x, np.full(2 * cards, B, np.int32),
+        capacity=planar.capacity_for(B, 6), min_count=6, mesh=mesh)
+    n = api.kernel_launch_counts()
+    assert n["hrt1_encode"] == n["hrt1_decode"] == cards, n
+    assert y.device == torch.device("cuda", 0)
+    assert torch.equal(y.cpu(), torch.from_numpy(x))
+    s = sizes.to(torch.int64)
+    assert torch.equal(offsets, torch.cumsum(s, 0) - s)
+
+
 # one NCCL rank of test_compress_distributed_nccl_on_every_card: argv
 # WORKDIR WORLD RANK
 _NCCL_RANK = r"""
@@ -592,8 +624,9 @@ import torch.distributed as tdist
 from hypersonic_rle_kit_tpu_torch import api
 from hypersonic_rle_kit_tpu_torch.parallel import dist
 workdir, world, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
-dist.initialize_multihost(tdist.FileStore(f"{workdir}/store", world), world,
-                          rank, backend="nccl", timeout=300)
+dist.initialize_multihost(num_processes=world, process_id=rank,
+                          backend="nccl", timeout=300,
+                          store=tdist.FileStore(f"{workdir}/store", world))
 data = np.fromfile(f"{workdir}/data.bin", np.uint8)
 wire = []
 all_gather = tdist.all_gather

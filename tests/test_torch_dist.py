@@ -214,7 +214,8 @@ def test_compress_distributed_rejects_wide_codec():
 def test_initialize_multihost_rejects_unknown_backend(tmp_path):
     store = torch.distributed.FileStore(str(tmp_path / "store"), 1)
     with pytest.raises(ValueError, match="backend"):
-        dist.initialize_multihost(store, 1, 0, backend="mpi")
+        dist.initialize_multihost(num_processes=1, process_id=0,
+                                  backend="mpi", store=store)
 
 
 def test_initialize_multihost_nccl_needs_cuda(tmp_path):
@@ -223,7 +224,8 @@ def test_initialize_multihost_nccl_needs_cuda(tmp_path):
         pytest.skip("a CUDA device is present")
     store = torch.distributed.FileStore(str(tmp_path / "store"), 1)
     with pytest.raises(RuntimeError, match="nccl"):
-        dist.initialize_multihost(store, 1, 0, backend="nccl")
+        dist.initialize_multihost(num_processes=1, process_id=0,
+                                  backend="nccl", store=store)
     assert not torch.distributed.is_initialized()
 
 
@@ -289,18 +291,22 @@ def test_initialize_multihost_nccl_sets_the_rank_card(fake_cuda, monkeypatch,
     all compute and exchange on card 0."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    dist.initialize_multihost(None, world, rank, backend="nccl")
+    dist.initialize_multihost(num_processes=world, process_id=rank,
+                              backend="nccl", store=torch.distributed.HashStore())
     assert fake_cuda == [("set_device", card), ("nccl", rank)]
 
 
 def test_initialize_multihost_nccl_refuses_a_shared_card(fake_cuda):
     with pytest.raises(ValueError, match="share a card"):
-        dist.initialize_multihost(None, 5, 0, backend="nccl")
+        dist.initialize_multihost(num_processes=5, process_id=0,
+                                  backend="nccl",
+                                  store=torch.distributed.HashStore())
     assert fake_cuda == []
 
 
 def test_initialize_multihost_gloo_leaves_the_device(fake_cuda):
-    dist.initialize_multihost(None, 8, 5, backend="gloo")
+    dist.initialize_multihost(num_processes=8, process_id=5, backend="gloo",
+                              store=torch.distributed.HashStore())
     assert fake_cuda == [("gloo", 5)]
 
 

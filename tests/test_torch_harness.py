@@ -39,6 +39,20 @@ def test_run_ranks_stops_every_rank(bad, timeout, error, match, tmp_path):
     assert time.monotonic() - t0 < 30
 
 
+def test_run_ranks_rank_env(tmp_path):
+    """Each rank gets its own variables on top of this environment (the
+    two-host layout of chip_smoke.py: a host's cards and LOCAL_RANK)."""
+    outs = graft_entry.run_ranks(
+        [sys.executable, "-c", "import os; print(os.environ['LOCAL_RANK'], "
+         "os.environ['CUDA_VISIBLE_DEVICES'], 'PYTHONPATH' in os.environ)"],
+        4, tmp_path, timeout=60,
+        rank_env=lambda r: {"LOCAL_RANK": str(r % 2),
+                            "CUDA_VISIBLE_DEVICES": "0,1" if r < 2 else "2,3"})
+    assert [o.split() for o in outs] == [
+        ["0", "0,1", "True"], ["1", "0,1", "True"], ["0", "2,3", "True"],
+        ["1", "2,3", "True"]]
+
+
 def test_dryrun_multichip_cpu(capsys):
     graft_entry.dryrun_multichip(2, "cpu", timeout=180)
     out = capsys.readouterr().out

@@ -8,8 +8,8 @@ package, and imports nothing of that package.
 - Each copy gives its original's bytes, on the CPU: the 121 codecs of
   ``formats``, the ``spec`` tables, the HRT1 container (serialize, parse,
   pack_for_device on flat, deep and deep + litdict containers), the native
-  host runtime, the grammar walkers, the fuzz inputs, the host fuzz lane
-  and the benchmark corpora.  Tolerance zero.
+  host runtime, the grammar walkers, the fuzz inputs, the host fuzz lane,
+  the bit-packing goldens and the benchmark corpora.  Tolerance zero.
 """
 
 import ast
@@ -25,12 +25,13 @@ import ref_oracle
 from hypersonic_rle_kit_tpu import fuzz as jfuzz
 from hypersonic_rle_kit_tpu import spec as jspec
 from hypersonic_rle_kit_tpu.formats import registry as jregistry
+from hypersonic_rle_kit_tpu.ops import bitpack as jbitpack
 from hypersonic_rle_kit_tpu.ops import ref_device as jref
 from hypersonic_rle_kit_tpu.parallel import container as jcontainer
 from hypersonic_rle_kit_tpu.utils import native as jnative
 from hypersonic_rle_kit_tpu_torch import datasets, fuzz, spec
 from hypersonic_rle_kit_tpu_torch.formats import registry
-from hypersonic_rle_kit_tpu_torch.ops import planar, ref_walk
+from hypersonic_rle_kit_tpu_torch.ops import bitpack, planar, ref_walk
 from hypersonic_rle_kit_tpu_torch.parallel import container
 from hypersonic_rle_kit_tpu_torch.utils import native
 
@@ -236,6 +237,17 @@ def test_fuzz_inputs_and_corpora_equal_original():
                  "make_random_dataset"):
         assert np.array_equal(getattr(datasets, make)(1),
                               getattr(bench, make)(1)), make
+
+
+@pytest.mark.parametrize("width", range(1, 9))
+def test_bitpack_numpy_goldens_equal_original(width):
+    rng = np.random.default_rng(width)
+    x = rng.integers(0, 1 << width, (3, 64), dtype=np.uint8)
+    packed = bitpack.pack_np(x, width)
+    assert np.array_equal(packed, jbitpack.pack_np(x, width))
+    got = bitpack.unpack_np(packed, width, 64)
+    assert np.array_equal(got, jbitpack.unpack_np(packed, width, 64))
+    assert np.array_equal(got, x)
 
 
 # the host fuzz lane: one or two codecs of every family but memcpy

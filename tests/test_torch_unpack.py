@@ -152,6 +152,69 @@ def test_unpack_resolve_plain_matches_jax(kind):
         np.testing.assert_array_equal(bad.numpy(), np.asarray(jbad))
 
 
+@pytest.mark.parametrize("out_words", [False, True])
+@pytest.mark.parametrize("kind", CONTAINERS)
+def test_section_decoders_match_jax(kind, out_words):
+    """decode_payload_device (flat) / decode_deep_device (deep) with the
+    JAX package's argument lists, the port's on its shipped CPU sections
+    against the JAX functions in interpret mode on the same sections:
+    equal output and equal bad flags (set on the tampered blocks)."""
+    pk = _pack(kind)
+    arrs = unpack_device.ship_packed(pk, "cpu")
+    jarrs = {k: jnp.asarray(pk[k]) for k in junpack.SECTION_KEYS if k in pk}
+    info = pk["info"]
+    kw = dict(cnt_bits=pk["cnt_bits"], lit_bits=pk["lit_bits"],
+              capacity=pk["capacity"], block_size=info.block_size,
+              min_count=info.min_count, out_words=out_words)
+    if info.deep:
+        keys = ("cnts_raw", "cnt_ovf_raw", "lls_raw", "ll_ovf_raw",
+                "lut_raw", "miss_raw", "dict7", "lits", "n_cmds", "n_lits",
+                "block_len", "n_cnt_ovf", "n_ll_ovf", "n_miss")
+        kw.update(cnt_ovf_bits=pk["cnt_ovf_bits"],
+                  ll_ovf_bits=pk["ll_ovf_bits"])
+        out, bad = unpack_device.decode_deep_device(
+            *(arrs[k] for k in keys), **kw)
+        jout, jbad = junpack.decode_deep_device(
+            *(jarrs[k] for k in keys), **kw, interpret=True)
+        np.testing.assert_array_equal(bad.numpy(), np.asarray(jbad))
+        assert bad.tolist() == ([1, 0, 1] if kind == "deep_tampered"
+                                else [0, 0, 0])
+    else:
+        keys = ("cnts_raw", "lls_raw", "syms", "lits", "n_cmds", "n_lits",
+                "block_len")
+        out = unpack_device.decode_payload_device(
+            *(arrs[k] for k in keys), **kw)
+        jout = junpack.decode_payload_device(
+            *(jarrs[k] for k in keys), **kw, interpret=True)
+        bad = None
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+    assert out.dtype == (torch.int32 if out_words else torch.uint8)
+    dout, dbad = unpack_device.dispatch_packed(pk, arrs, with_flags=True,
+                                               out_words=out_words)
+    assert torch.equal(dout, out)
+    assert (dbad is None and bad is None) or torch.equal(dbad, bad)
+
+
+def test_ship_and_decode_packed_default_to_the_card():
+    """ship_packed(pk) and decode_packed(pk), the JAX package's calls, run
+    on the card by default: here, with no card, they raise torch's error
+    (no CPU fallback); on the CPU they decode the container."""
+    import inspect
+    pk = _pack("deep_escapes")
+    for fn in (unpack_device.ship_packed, unpack_device.decode_packed):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    want = junpack.decode_packed(pk, interpret=True)
+    np.testing.assert_array_equal(
+        unpack_device.decode_packed(pk, device="cpu"), want)
+    if torch.cuda.is_available():
+        np.testing.assert_array_equal(unpack_device.decode_packed(pk), want)
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        unpack_device.ship_packed(pk)
+    with pytest.raises((RuntimeError, AssertionError)):
+        unpack_device.decode_packed(pk)
+
+
 # ---------------------------------------------------------------------------
 # random sections: every width the kernel takes, hostile n_cmds
 # ---------------------------------------------------------------------------

@@ -78,8 +78,9 @@ def main(workdir: str, world: int, rank: int) -> None:
     tdist.all_gather = counting_all_gather
     tdist.all_gather_object = counting_all_gather_object
 
-    dist.initialize_multihost(tdist.FileStore(f"{workdir}/store", world),
-                              world, rank, backend="gloo", timeout=60)
+    dist.initialize_multihost(
+        num_processes=world, process_id=rank, backend="gloo",
+        store=tdist.FileStore(f"{workdir}/store", world), timeout=60)
     mesh = dist.make_mesh()
     cap = planar.capacity_for(B, MIN_COUNT)
     kw = dict(capacity=cap, min_count=MIN_COUNT, mesh=mesh)
@@ -101,8 +102,8 @@ def main(workdir: str, world: int, rank: int) -> None:
     out["model"] = (_cols(pb), all_sizes.numpy())
     pb, _, _ = dist.encode_sharded(*mine(serialize_blocks_input()), **kw)
     phase[0] = "serialize"
-    out["serialize"] = dist.serialize_local_blocks(pb, mesh,
-                                                   min_count=MIN_COUNT)
+    out["serialize"] = dist.serialize_local_blocks(pb, min_count=MIN_COUNT,
+                                                   mesh=mesh)
     phase[0] = "compress"
     out["compress"] = {n: dist.compress_distributed(
         stream(n), mesh, block_size=B, min_count=MIN_COUNT, device="cpu")
